@@ -1,0 +1,28 @@
+"""
+simplestereo_tpu_torch
+======================
+
+PyTorch/CUDA port of :mod:`simplestereo_tpu` for one NVIDIA H100.
+
+The JAX package stays the reference; each module here mirrors its
+counterpart there (``passive/lab.py`` <- ``simplestereo_tpu/passive/lab.py``
+and so on) and is tested against it on the same inputs. Functions take
+tensors and run on the device those tensors live on; the matcher classes
+take an explicit ``device`` and raise when it is not available (there is
+no silent CPU fallback).
+
+Every Pallas kernel of the JAX package becomes a hand-written CUDA kernel
+for ``sm_90a`` (sources under ``csrc/``, built with ``nvcc`` at first use,
+see :mod:`._build`). Beside each kernel lives its plain PyTorch twin: the
+CPU path, and the version the kernel is checked against on the card.
+
+This package imports ``torch`` and ``numpy`` and never ``jax``.
+"""
+
+__version__ = "0.1.0"
+
+from . import passive
+from . import evaluation
+from ._device import resolve_device
+
+__all__ = ["passive", "evaluation", "resolve_device"]

@@ -1,0 +1,89 @@
+"""
+Build the CUDA sources under ``csrc/`` at first use and bind them with
+ctypes.
+
+Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
+``nvcc`` into ``build/simplestereo_tpu_torch/lib<name>-<hash>.so`` at the
+root of the checkout, keyed by a hash of the source and the flags, so an
+edited source is rebuilt and an unchanged one is loaded as it is. A plain
+C interface keeps the build to seconds (a source that includes PyTorch's
+headers takes minutes). Nothing is fetched: the sources are the
+repository's own.
+
+Pointers and the stream are passed as ``c_void_p``, integers as ``c_int``
+and floats as ``c_float``; every C entry returns ``cudaGetLastError()`` of
+its launches, which the caller turns into an exception.
+"""
+
+import ctypes
+import functools
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+
+_CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = _CSRC.parents[1] / "build" / "simplestereo_tpu_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
+              "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# C signatures, by library: {function: (argtypes, restype)}.
+_SIGNATURES = {
+    "asw_kernel": {
+        # planes, prox, cost, dispL, dispR, csub,
+        # B, H, W, Hp, Wp, x0, win, step, min_disp, D, inv_gc, device, stream
+        "asw_pass": ([_P] * 6 + [_I] * 10 + [_F, _I, _P], _I),
+        "asw_error_string": ([_I], ctypes.c_char_p),
+    },
+}
+
+
+def _nvcc():
+    from torch.utils.cpp_extension import CUDA_HOME
+    found = shutil.which("nvcc")
+    if found is None and CUDA_HOME is not None:
+        cand = pathlib.Path(CUDA_HOME) / "bin" / "nvcc"
+        found = str(cand) if cand.exists() else None
+    if found is None:
+        raise RuntimeError("nvcc not found: building the CUDA kernels needs "
+                           "the CUDA toolkit (nvcc on PATH or CUDA_HOME)")
+    return found
+
+
+def _library_path(name):
+    src = _CSRC / f"{name}.cu"
+    h = hashlib.sha256(src.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return src, BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def compile_log(name):
+    """nvcc's output (ptxas register and spill report) for ``name``'s
+    current build, or '' when it was not built by this checkout yet."""
+    log = _library_path(name)[1].with_suffix(".log")
+    return log.read_text() if log.exists() else ""
+
+
+@functools.cache
+def load_library(name):
+    """Build ``csrc/<name>.cu`` if its build is missing, load it, and set
+    the ctypes signatures of its C entries."""
+    src, lib_path = _library_path(name)
+    if not lib_path.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {src.name} "
+                               f"(exit {res.returncode}):\n{res.stderr}")
+        lib_path.with_suffix(".log").write_text(res.stdout + res.stderr)
+        os.replace(tmp, lib_path)  # atomic: concurrent builders race safely
+    lib = ctypes.CDLL(str(lib_path))
+    for fn, (argtypes, restype) in _SIGNATURES[name].items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = restype
+    return lib
