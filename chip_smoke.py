@@ -3,14 +3,22 @@
 
     python3 chip_smoke.py
 
-Builds the ASW kernel from ``simplestereo_tpu_torch/csrc/``, checks it
-against its plain PyTorch twin on the card, drives the matcher's main
-path (``StereoASW(35, 14, 4, 15, 17.5, consistent=True).compute``, the
-Tsukuba-size headline configuration) on synthetic 384x288 and 1280x720
-pairs with a known shift of 5, and times kernel and twin with CUDA
-events. Every phase prints one line; any failed check raises, so the exit
-code is nonzero and no result line is printed. The last two lines are the
-kernels' JSON record and ``{"ok": true, "device": {...}}``.
+Builds the kernels of ``simplestereo_tpu_torch/csrc/`` (one nvcc per
+source, all started together) and drives the port's two main paths:
+
+- ASW: checks the ASW kernel against its plain PyTorch twin on the card,
+  drives ``StereoASW(35, 14, 4, 15, 17.5, consistent=True).compute`` (the
+  Tsukuba-size headline configuration) on synthetic 384x288 and 1280x720
+  pairs with a known shift of 5, and times kernel and twin;
+- SGM: checks the path-aggregation kernel against its twin on option cases
+  (S bit-equal), drives ``StereoSGM(device="cuda").compute`` and
+  ``computeBatch`` in the Tsukuba-size census configuration at 384x288 and
+  the full-width BT row at 1280x720 with D = 128 on the same synthetic
+  pairs, and times kernel, twin and ``compute()``.
+
+Every phase prints one line; any failed check raises, so the exit code is
+nonzero and no result line is printed. The last two lines are the kernels'
+JSON record and ``{"ok": true, "device": {...}}``.
 
 Needs a CUDA card, nvcc and the repository checkout; imports no JAX.
 """
@@ -30,6 +38,32 @@ SEED = 0
 SHIFT = 5
 MAIN = dict(winSize=35, maxDisparity=14, minDisparity=4, gammaC=15,
             gammaP=17.5, consistent=True)
+# SGM main path: the Tsukuba-size census configuration (bench.py:402-404)
+# at 384x288 and the full-width BT row (bench.py:489-492) at 1280x720.
+SGM_MAIN = [
+    ((288, 384), dict(minDisparity=0, numDisparities=16, blockSize=3, P1=120,
+                      P2=480, uniquenessRatio=0, costMethod="census",
+                      censusWindow=7)),
+    ((720, 1280), dict(numDisparities=128, blockSize=3, P1=36, P2=144,
+                       preFilterCap=15, uniquenessRatio=0)),
+]
+# bench.py:441-444, a stack of 8 frames at 384x288.
+SGM_BATCH8 = dict(minDisparity=0, numDisparities=16, blockSize=3, P1=36,
+                  P2=144, preFilterCap=15, uniquenessRatio=0)
+# Option cases of the SGM kernel at a size that is not a multiple of 32 in
+# any axis. Kernel and twin do the same min/add steps in the same order,
+# so S must be bit-equal.
+SGM_CASES = [
+    dict(numDisparities=3, blockSize=1, paths=4),
+    dict(numDisparities=11, blockSize=5, costMethod="census", censusWindow=7),
+    dict(minDisparity=-4, numDisparities=16, costMethod="bt+census",
+         disp12MaxDiff=1),
+    dict(numDisparities=40, uniquenessRatio=10),
+    dict(numDisparities=16, paths=4, costMethod="census", censusWindow=7,
+         disp12MaxDiff=1, uniquenessRatio=10),
+    dict(numDisparities=11, costMethod="bt+census", censusWindow=7,
+         disp12MaxDiff=1, B=2),
+]
 # Kernel vs plain twin: the same inf pattern; rtol on finite costs (the
 # kernel multiplies two expf where the twin takes one exp of the sum, and
 # sums in another order); argmin maps may flip on near-ties.
@@ -121,6 +155,166 @@ def cuda_ms(fn, inputs):
     return statistics.median(ts), ts
 
 
+def host_ms(fn, inputs):
+    """Median host-clock ms of fn(*x) over inputs[1:] (inputs[0] warms up),
+    and the number of timed calls."""
+    fn(*inputs[0])
+    ts = []
+    for x in inputs[1:]:
+        t0 = time.perf_counter()
+        fn(*x)
+        ts.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(ts), len(ts)
+
+
+def sgm_phases(dev, card):
+    """Phases 7-10: the SGM kernel against its twin, the SGM main path in
+    both configurations, and times. Returns the kernel's JSON record."""
+    from simplestereo_tpu_torch.passive import StereoSGM, sgm, sgm_cuda
+
+    def args(m, *keys):
+        kw = m._kwargs(subpixel=True)
+        return {k: kw[k] for k in keys}
+
+    def volume(m, l, r):
+        """Cost volume of (B, H, W, 3) uint8 stacks on the card."""
+        return sgm._cost_from_gray(
+            sgm._gray_frames(torch.tensor(l, device=dev)),
+            sgm._gray_frames(torch.tensor(r, device=dev)),
+            **args(m, "min_disp", "num_disp", "block_size", "prefilter_cap",
+                   "cost_method", "census_window")).contiguous()
+
+    def post(m, S):
+        return sgm._sgm_post(S, **args(m, "min_disp", "num_disp",
+                                       "uniqueness", "disp12_max_diff",
+                                       "subpixel"))
+
+    # ---- phase 7: kernel vs twin, every option case ---------------------
+    for case in SGM_CASES:
+        kw = dict(case)
+        B = kw.pop("B", 1)
+        m = StereoSGM(device="cuda", **kw)
+        rng = np.random.default_rng(SEED + 2)
+        l = rng.integers(0, 256, (B, 45, 150, 3), np.uint8)
+        C = volume(m, l, np.roll(l, -SHIFT, axis=2))
+        if B == 1:
+            C = C[0]  # the (H, W, D) form of the wrapper
+        n0 = sgm_cuda.launches
+        k = sgm_cuda.aggregate(C, m.P1, m.P2, m.paths)
+        torch.cuda.synchronize()
+        check(sgm_cuda.launches == n0 + 1, f"SGM case {case}: launch not "
+              "counted")
+        p = sgm_cuda._aggregate(C, float(m.P1), float(m.P2), m.paths)
+        check(torch.equal(k, p), f"SGM case {case}: S differs from the "
+              f"twin, max abs err {(k - p).abs().max().item():.3g}")
+        check(torch.equal(post(m, k), post(m, p)),
+              f"SGM case {case}: final maps differ")
+    print(f"phase 7 SGM kernel vs twin on {len(SGM_CASES)} option cases at "
+          f"45x150 (paths 4/8, D 3/11/16/40, min_disp -4, blockSize 1/3/5, "
+          f"bt/census 7/bt+census, LR 1, uniqueness 10, B 2): S "
+          f"torch.equal, maps equal, launch count +1 per call")
+
+    # ---- phases 8-9: the main path --------------------------------------
+    launches_main = None
+    e2e = {}
+    for phase, ((h, w), cfg) in zip((8, 9), SGM_MAIN):
+        m = StereoSGM(device="cuda", **cfg)
+        left, right = pair(h, w)
+        lefts = np.stack([np.roll(left, i, axis=0) for i in range(8)])
+        rights = np.stack([np.roll(right, i, axis=0) for i in range(8)])
+        sgm_cuda.launches = 0
+        d = m.compute(left, right)
+        batch = m.computeBatch(lefts, rights)
+        per = [m.compute(lefts[i], rights[i]) for i in range(8)]
+        n = sgm_cuda.launches
+        check(d.shape == (h, w) and d.dtype == np.int16, f"SGM {h}x{w}: "
+              "shape")
+        interior = d[8:-8, 16:-8].astype(np.float32) / 16.0
+        frac = float((np.abs(interior - SHIFT) <= 0.5).mean())
+        check(frac >= 0.98, f"SGM {h}x{w}: only {frac:.2%} of interior "
+              f"within 0.5 px of {SHIFT}")
+        check(n == 10, f"SGM {h}x{w}: {n} kernel launches, expected 10")
+        for i in range(8):
+            check(np.array_equal(batch[i], per[i]),
+                  f"SGM {h}x{w}: batch frame {i} differs from per-frame")
+        if launches_main is None:
+            launches_main = n
+        del batch, per
+        # end to end per frame: numpy in, numpy out, distinct inputs
+        e2e[(h, w)], n_e2e = host_ms(m.compute, list(zip(lefts, rights)))
+        D = cfg["numDisparities"]
+        print(f"phase {phase} SGM main path {w}x{h} D={D} "
+              f"{cfg.get('costMethod', 'bt')}: {frac:.2%} of interior within "
+              f"0.5 px of {SHIFT}, launches {n}, batch of 8 bit-equal to "
+              f"per-frame, compute() median {e2e[(h, w)]:.2f} ms/frame end "
+              f"to end (host clock, n={n_e2e}) | {card}")
+        torch.cuda.empty_cache()
+
+    # ---- phase 10: times ------------------------------------------------
+    def volumes(m, h, w, B, n):
+        left, right = pair(h, w)
+        out = []
+        for i in range(n):
+            rows = [i * B + j for j in range(B)]
+            ls = np.stack([np.roll(left, r, axis=0) for r in rows])
+            rs = np.stack([np.roll(right, r, axis=0) for r in rows])
+            C = volume(m, ls, rs)
+            out.append(C[0] if B == 1 else C)
+        return out
+
+    def rate(h, w, D, B, ms):
+        return h * w * D * B / (ms * 1e-3) / 1e6
+
+    times = {}
+    for (h, w), cfg in SGM_MAIN:
+        m = StereoSGM(device="cuda", **cfg)
+        D = cfg["numDisparities"]
+        vols = volumes(m, h, w, 1, 6)
+        run_k = lambda C: sgm_cuda.aggregate(C, m.P1, m.P2, m.paths)
+        run_p = lambda C: sgm_cuda._aggregate(C, float(m.P1), float(m.P2),
+                                              m.paths)
+        k_ms, _ = cuda_ms(run_k, vols)
+        p_ms, _ = cuda_ms(run_p, vols[:3])
+        k, p = run_k(vols[0]), run_p(vols[0])
+        err = (k - p).abs().max().item()
+        check(torch.equal(k, p), f"SGM {w}x{h} D={D}: kernel S differs from "
+              f"the twin at the main-path shape, max abs err {err:.3g}")
+        del k, p
+        times[(h, w)] = (k_ms, p_ms, err)
+        print(f"phase 10 SGM {w}x{h} D={D}: kernel {k_ms:.3f} ms "
+              f"({rate(h, w, D, 1, k_ms):.1f} Mpix*disp/s), twin "
+              f"{p_ms:.1f} ms ({rate(h, w, D, 1, p_ms):.2f} Mpix*disp/s), "
+              f"kernel S torch.equal to the twin's; compute() "
+              f"{e2e[(h, w)]:.2f} ms | {card}")
+        del vols
+        torch.cuda.empty_cache()
+
+    m = StereoSGM(device="cuda", **SGM_BATCH8)
+    vols = volumes(m, 288, 384, 8, 6)
+    b8_ms, _ = cuda_ms(lambda C: sgm_cuda.aggregate(C, m.P1, m.P2, m.paths),
+                       vols)
+    del vols
+    left, right = pair(288, 384)
+    stacks = [(np.stack([np.roll(left, i * 8 + j, axis=0) for j in range(8)]),
+               np.stack([np.roll(right, i * 8 + j, axis=0)
+                         for j in range(8)])) for i in range(6)]
+    cb_ms, n_cb = host_ms(m.computeBatch, stacks)
+    one_ms, n_one = host_ms(m.compute, [(ls[0], rs[0]) for ls, rs in stacks])
+    print(f"phase 10 SGM sgm_batch8 384x288 D=16 bt B=8: kernel "
+          f"{b8_ms:.3f} ms ({b8_ms / 8:.3f} ms/frame, "
+          f"{rate(288, 384, 16, 8, b8_ms):.1f} Mpix*disp/s); computeBatch() "
+          f"{cb_ms:.2f} ms ({cb_ms / 8:.3f} ms/frame end to end, host "
+          f"clock, n={n_cb}); compute() of one frame {one_ms:.2f} ms "
+          f"(n={n_one}) | {card}")
+
+    k_ms, p_ms, err = times[SGM_MAIN[0][0]]
+    return {"name": "sgm_aggregate", "route": "cuda",
+            "source": "simplestereo_tpu_torch/csrc/sgm_kernel.cu",
+            "replaces": "simplestereo_tpu/passive/sgm_pallas.py:72",
+            "launches": launches_main, "max_abs_err": err,
+            "ms": k_ms, "plain_ms": p_ms}
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False: needs a "
@@ -140,11 +334,15 @@ def main():
           f"{sys.version.split()[0]}")
 
     t0 = time.perf_counter()
+    _build.build(["asw_kernel", "sgm_kernel"])
     _build.load_library("asw_kernel")
+    _build.load_library("sgm_kernel")
     build_s = time.perf_counter() - t0
-    ptxas = [ln.strip() for ln in _build.compile_log("asw_kernel")
-             .splitlines() if "registers" in ln or "spill" in ln]
-    print(f"phase 2 build: asw_kernel {build_s:.2f} s | " + " | ".join(ptxas))
+    ptxas = [f"{name}: {ln.strip()}" for name in ("asw_kernel", "sgm_kernel")
+             for ln in _build.compile_log(name).splitlines()
+             if "registers" in ln or "spill" in ln]
+    print(f"phase 2 build: asw_kernel + sgm_kernel in parallel {build_s:.2f} "
+          f"s | " + " | ".join(ptxas))
 
     # ---- phase 3: kernel vs plain twin, every option case --------------
     worst = [0.0, 0.0, 0.0]
@@ -266,12 +464,17 @@ def main():
           f"B=8: {b8_ms:.3f} ms ({b8_ms / 8:.3f} ms/frame, "
           f"{rate(288, 384, 8, b8_ms):.1f} Mpix*disp/s) | {card}")
 
-    print(json.dumps({"kernels": [{
+    asw_entry = {
         "name": "asw_pass", "route": "cuda",
         "source": "simplestereo_tpu_torch/csrc/asw_kernel.cu",
         "replaces": "simplestereo_tpu/passive/asw_pallas.py:155",
         "launches": launches_main, "max_abs_err": abs_err,
-        "ms": k_ms, "plain_ms": p_ms}]}))
+        "ms": k_ms, "plain_ms": p_ms}
+    del m
+    torch.cuda.empty_cache()
+    sgm_entry = sgm_phases(dev, card)
+
+    print(json.dumps({"kernels": [asw_entry, sgm_entry]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -38,6 +38,12 @@ _SIGNATURES = {
         "asw_pass": ([_P] * 6 + [_I] * 10 + [_F, _I, _P], _I),
         "asw_error_string": ([_I], ctypes.c_char_p),
     },
+    "sgm_kernel": {
+        # C, S, B, H, W, D, P1, P2, paths, device, stream
+        "sgm_aggregate": ([_P] * 2 + [_I] * 4 + [_F] * 2 + [_I] * 2 + [_P],
+                          _I),
+        "sgm_error_string": ([_I], ctypes.c_char_p),
+    },
 }
 
 
@@ -67,22 +73,44 @@ def compile_log(name):
     return log.read_text() if log.exists() else ""
 
 
+def build(names):
+    """Compile each ``csrc/<name>.cu`` of ``names`` whose build is missing:
+    one nvcc per source, all started together, so a cold build of every
+    kernel takes as long as the slowest source rather than their sum.
+    Returns when every one has finished; raises if any failed."""
+    jobs = []
+    for name in names:
+        src, lib_path = _library_path(name)
+        if lib_path.exists():
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
+        log = lib_path.with_suffix(f".{os.getpid()}.tmplog")
+        with open(log, "w") as out:
+            proc = subprocess.Popen(
+                [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+                stdout=out, stderr=subprocess.STDOUT)
+        jobs.append((src, lib_path, tmp, log, proc))
+    failed = []
+    for src, lib_path, tmp, log, proc in jobs:
+        if proc.wait() != 0:
+            failed.append(f"nvcc failed for {src.name} (exit "
+                          f"{proc.returncode}):\n{log.read_text()}")
+            tmp.unlink(missing_ok=True)
+            log.unlink()
+            continue
+        os.replace(log, lib_path.with_suffix(".log"))
+        os.replace(tmp, lib_path)  # atomic: concurrent builds race safely
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
 @functools.cache
 def load_library(name):
     """Build ``csrc/<name>.cu`` if its build is missing, load it, and set
     the ctypes signatures of its C entries."""
-    src, lib_path = _library_path(name)
-    if not lib_path.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {src.name} "
-                               f"(exit {res.returncode}):\n{res.stderr}")
-        lib_path.with_suffix(".log").write_text(res.stdout + res.stderr)
-        os.replace(tmp, lib_path)  # atomic: concurrent builders race safely
-    lib = ctypes.CDLL(str(lib_path))
+    build([name])
+    lib = ctypes.CDLL(str(_library_path(name)[1]))
     for fn, (argtypes, restype) in _SIGNATURES[name].items():
         getattr(lib, fn).argtypes = argtypes
         getattr(lib, fn).restype = restype

@@ -4,20 +4,32 @@ convert
 
 Build the port's objects from their JAX-package counterparts.
 
-The ASW matcher holds no learned weights: its whole state is its eight
-constructor parameters, so converting one is reading them. Attributes
-are read with ``getattr``, so this module imports neither ``jax`` nor
+The matchers hold no learned weights: their whole state is their
+constructor parameters (for SGM with P1 and P2 already resolved from
+their defaults), so converting one is reading them. Attributes are read
+with ``getattr``, so this module imports neither ``jax`` nor
 ``simplestereo_tpu``.
 """
 
-from .passive import StereoASW
+from .passive import StereoASW, StereoSGM
 
 _ASW_PARAMS = ("winSize", "maxDisparity", "minDisparity", "gammaC", "gammaP",
                "consistent", "step", "subpixel")
+_SGM_PARAMS = ("minDisparity", "numDisparities", "blockSize", "P1", "P2",
+               "disp12MaxDiff", "preFilterCap", "uniquenessRatio",
+               "speckleWindowSize", "speckleRange", "paths", "costMethod",
+               "censusWindow")
 
 
 def asw_from_jax(matcher, device="cuda"):
     """Port's :class:`StereoASW` computing what ``matcher`` (a
     ``simplestereo_tpu.passive.StereoASW``) computes, on ``device``."""
     return StereoASW(**{k: getattr(matcher, k) for k in _ASW_PARAMS},
+                     device=device)
+
+
+def sgm_from_jax(matcher, device="cuda"):
+    """Port's :class:`StereoSGM` computing what ``matcher`` (a
+    ``simplestereo_tpu.passive.StereoSGM``) computes, on ``device``."""
+    return StereoSGM(**{k: getattr(matcher, k) for k in _SGM_PARAMS},
                      device=device)

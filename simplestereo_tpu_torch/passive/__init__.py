@@ -5,7 +5,8 @@ passive
 Dense passive stereo matching, PyTorch port of
 :mod:`simplestereo_tpu.passive`. So far: the ASW matcher on its CUDA
 kernel (:mod:`.asw_cuda`), with the plain twin (:mod:`.asw_ref`) as the
-CPU path and oracle.
+CPU path and oracle, and the SGM matcher (:mod:`.sgm`) on its path
+aggregation kernel (:mod:`.sgm_cuda`).
 """
 
 import numpy as np
@@ -15,6 +16,7 @@ from .._device import resolve_device
 from .lab import bgr_to_lab
 from .asw_ref import asw_disparity_ref, occlusion_fill
 from .asw_cuda import asw_disparity, asw_disparity_batch
+from .sgm import StereoSGM, StereoSGBM_create, filter_speckles
 
 
 class StereoASW:
@@ -105,4 +107,7 @@ __all__ = [
     "asw_disparity_ref",
     "occlusion_fill",
     "StereoASW",
+    "StereoSGM",
+    "StereoSGBM_create",
+    "filter_speckles",
 ]
