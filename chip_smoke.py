@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the kernels of ``simplestereo_tpu_torch/csrc/`` (one nvcc per
-source, all started together) and drives the port's two main paths:
+source, all started together) and drives the port's three main paths:
 
 - ASW: checks the ASW kernel against its plain PyTorch twin on the card,
   drives ``StereoASW(35, 14, 4, 15, 17.5, consistent=True).compute`` (the
@@ -14,7 +14,20 @@ source, all started together) and drives the port's two main paths:
   (S bit-equal), drives ``StereoSGM(device="cuda").compute`` and
   ``computeBatch`` in the Tsukuba-size census configuration at 384x288 and
   the full-width BT row at 1280x720 with D = 128 on the same synthetic
-  pairs, and times kernel, twin and ``compute()``.
+  pairs, and times kernel, twin and ``compute()``;
+- GSW: checks the support-weight kernel against its twin on option cases
+  (SD, mirrored consistent stack, step, D > 16, negative min_disp, win 1,
+  D = 1, normalize, an MI volume, B = 2, a window too large for shared
+  memory), drives ``StereoGSW(23, 14, 4, 12.5, 20,
+  consistent=True).compute`` and ``computeBatch`` (the tuned Tsukuba-size
+  point) at 384x288 and 1280x720, drives the MI cost on a gamma-0.5 pair,
+  times kernel, twin and ``compute()``, and profiles ``compute()`` (device
+  time against wall time, SD and MI).
+
+Every kernel's JSON record carries ``bound_ms``, the least time the card
+could take for the kernel's work at the timed shape: the larger of its
+operations over the float32 peak and its bytes (each input read once,
+each output written once) over the memory rate.
 
 Every phase prints one line; any failed check raises, so the exit code is
 nonzero and no result line is printed. The last two lines are the kernels'
@@ -24,6 +37,7 @@ Needs a CUDA card, nvcc and the repository checkout; imports no JAX.
 """
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -69,6 +83,45 @@ SGM_CASES = [
 # sums in another order); argmin maps may flip on near-ties.
 RTOL = 2e-5
 MISMATCH = 0.01
+# Peaks of one H100 SXM at 700 W (NVIDIA's data sheet): float32 outside
+# the tensor cores, and HBM3.
+PEAK_FLOPS = 67e12
+PEAK_BYTES = 3.35e12
+# GSW main path: the tuned Tsukuba point of bench.py:513-514 (`gsw`); the
+# MI stage of bench.py:553-555 (`gsw_mi`).
+GSW_MAIN = dict(winSize=23, maxDisparity=14, minDisparity=4, gamma=12.5,
+                fMax=20, iterations=1, consistent=True)
+# The two frame sizes of the GSW phases: Tsukuba's and 720p.
+GSW_SHAPES = [(288, 384), (720, 1280)]
+GSW_MI = dict(winSize=23, maxDisparity=14, minDisparity=4, gamma=12.5,
+              costMethod="mi", bins=24, miIterations=3, consistent=True)
+# Share of the MI map's interior that must equal the shift on the
+# gamma-0.5 pair at 384x288, and share of the card's map that must equal
+# the CPU path's (same pair, same bootstrap field; near-ties may flip).
+# The CPU path recovers 99.29% there; phase 13 prints its share beside
+# the card's.
+MI_BAR = 0.98
+MI_AGREE = 0.99
+# Option cases of the GSW kernel at 45x150; every range holds the pair's
+# true shift (see CASES). "mi": the kernel aggregates a prebuilt MI volume
+# (ext_vol). Window 111 does not fit a block's tile in shared memory, so
+# its window reads go to device memory. The normalize case is not capped
+# (fMax 500): capped noise costs normalize to fMax within a few ulps, and
+# their order would be noise.
+GSW_CASES = [
+    dict(win_size=7, min_disp=1, max_disp=6),
+    dict(win_size=7, min_disp=1, max_disp=6, consistent=True),
+    dict(win_size=9, min_disp=1, max_disp=6, consistent=True, step=2),
+    dict(win_size=5, min_disp=0, max_disp=20, consistent=True),
+    dict(win_size=5, min_disp=-3, max_disp=16, consistent=True),
+    dict(win_size=1, min_disp=1, max_disp=6, consistent=True),
+    dict(win_size=5, min_disp=5, max_disp=5),
+    dict(win_size=7, min_disp=1, max_disp=6, consistent=True,
+         normalize=True, f_max=500.0),
+    dict(win_size=7, min_disp=1, max_disp=6, consistent=True, mi=True),
+    dict(win_size=7, min_disp=4, max_disp=14, consistent=True, B=2),
+    dict(win_size=111, min_disp=1, max_disp=6, consistent=True),
+]
 # Option cases of the kernel, at a small ragged size (not a multiple of
 # the (32, 8) block): lattice step, D > 16 (two register chunks),
 # negative min_disp, sub-pixel neighbourhood, a frame batch. Every range
@@ -139,6 +192,14 @@ def compare_pass(k, p, min_disp, where):
     return abs_err, rel_err, mism
 
 
+def bound(flops, nbytes):
+    """(bound_ms, bound_by): the larger of operations over the float32 peak
+    and bytes over the memory rate."""
+    t_ops, t_bytes = flops / PEAK_FLOPS, nbytes / PEAK_BYTES
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
 def cuda_ms(fn, inputs):
     """Median CUDA-event ms of fn over inputs[1:] (inputs[0] warms up)."""
     fn(inputs[0])
@@ -165,6 +226,35 @@ def host_ms(fn, inputs):
         fn(*x)
         ts.append((time.perf_counter() - t0) * 1e3)
     return statistics.median(ts), len(ts)
+
+
+def profile_ms(fn, inputs, top=3):
+    """torch.profiler over fn(*x) for x in inputs[1:] (inputs[0] warms up).
+    Per call: device ms (kernels and copies, summed), device events, wall
+    ms of the profiled run; and the `top` device events by time, ms per
+    call each."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn(*inputs[0])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for x in inputs[1:]:
+            fn(*x)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    n = len(inputs) - 1
+    by_name = {}
+    events = 0
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name] = (by_name.get(e.name, 0.0)
+                               + e.time_range.elapsed_us() / 1e3 / n)
+            events += 1
+    heavy = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
+    return sum(by_name.values()), events / n, wall / n, heavy
 
 
 def sgm_phases(dev, card):
@@ -280,12 +370,15 @@ def sgm_phases(dev, card):
         check(torch.equal(k, p), f"SGM {w}x{h} D={D}: kernel S differs from "
               f"the twin at the main-path shape, max abs err {err:.3g}")
         del k, p
-        times[(h, w)] = (k_ms, p_ms, err)
+        # C read once, S written once; per (path, pixel, d) the
+        # recurrence's 7 min/add operations and 1 add into S.
+        bnd = bound(8 * 8 * h * w * D, 2 * h * w * D * 4)
+        times[(h, w)] = (k_ms, p_ms, err, bnd)
         print(f"phase 10 SGM {w}x{h} D={D}: kernel {k_ms:.3f} ms "
               f"({rate(h, w, D, 1, k_ms):.1f} Mpix*disp/s), twin "
               f"{p_ms:.1f} ms ({rate(h, w, D, 1, p_ms):.2f} Mpix*disp/s), "
-              f"kernel S torch.equal to the twin's; compute() "
-              f"{e2e[(h, w)]:.2f} ms | {card}")
+              f"bound {bnd[0]:.4f} ms ({bnd[1]}), kernel S torch.equal to "
+              f"the twin's; compute() {e2e[(h, w)]:.2f} ms | {card}")
         del vols
         torch.cuda.empty_cache()
 
@@ -307,12 +400,250 @@ def sgm_phases(dev, card):
           f"clock, n={n_cb}); compute() of one frame {one_ms:.2f} ms "
           f"(n={n_one}) | {card}")
 
-    k_ms, p_ms, err = times[SGM_MAIN[0][0]]
+    k_ms, p_ms, err, (bound_ms, bound_by) = times[SGM_MAIN[0][0]]
     return {"name": "sgm_aggregate", "route": "cuda",
             "source": "simplestereo_tpu_torch/csrc/sgm_kernel.cu",
             "replaces": "simplestereo_tpu/passive/sgm_pallas.py:72",
             "launches": launches_main, "max_abs_err": err,
-            "ms": k_ms, "plain_ms": p_ms}
+            "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None}
+
+
+def gsw_phases(dev, card):
+    """Phases 11-14: the GSW kernel against its twin, the GSW main path at
+    both sizes, the MI cost, and times. Returns the kernel's JSON record."""
+    from simplestereo_tpu_torch.passive import StereoGSW, gsw, gsw_cuda
+
+    def t(a):
+        return torch.tensor(a, device=dev)
+
+    def gamma05(img):
+        return np.clip(255.0 * (img / 255.0) ** 0.5, 0, 255).astype(np.uint8)
+
+    def sd_planes(ls, rs, win, consistent=True):
+        """Planes of (B, H, W, 3) uint8 stacks, mirrored stack included."""
+        return gsw_cuda._build_planes(
+            *gsw_cuda._directions(t(ls), t(rs), consistent), win)
+
+    def mi_planes(ls, rs, win, min_disp, max_disp, bins, consistent=True):
+        """ext_vol planes: BGR(ref) + the MI volume of the bootstrap field."""
+        refs, tgts = gsw_cuda._directions(t(ls), t(rs), consistent)
+        H, W = refs.shape[1:3]
+        disp0 = gsw_cuda._bootstrap(H, W, min_disp, max_disp).to(dev)
+        vol = gsw._mi_volume(gsw._quantize_gray(refs, bins),
+                             gsw._quantize_gray(tgts, bins),
+                             disp0.expand(refs.shape[:3]), min_disp=min_disp,
+                             max_disp=max_disp, bins=bins)
+        return torch.cat([
+            gsw_cuda._pack_planes(refs.permute(0, 3, 1, 2), win,
+                                  gsw_cuda.BGR_SENTINEL),
+            gsw_cuda._pack_planes(vol, win, 0.0)], dim=1)
+
+    def versus(planes, pkw, where):
+        """One kernel call against the twin on the same planes."""
+        n0 = gsw_cuda.launches
+        kd, kc = gsw_cuda._gsw_pass(planes, return_cost=True, **pkw)
+        torch.cuda.synchronize()
+        check(gsw_cuda.launches == n0 + 1, f"{where}: launch not counted")
+        pd, pc = gsw_cuda._gsw_pass_plain(planes, return_cost=True, **pkw)
+        errs = compare_pass((kc, kd, None, None), (pc, pd, None, None),
+                            pkw["min_disp"], where)
+        return kd, pd, errs
+
+    # ---- phase 11: kernel vs twin, every option case --------------------
+    worst = [0.0, 0.0, 0.0]
+    for case in GSW_CASES:
+        kw = dict(case)
+        B = kw.pop("B", 1)
+        cons = kw.pop("consistent", False)
+        mi = kw.pop("mi", False)
+        f_max = kw.pop("f_max", 20.0)
+        h, w = 45, 150
+        rng = np.random.default_rng(SEED + 3)
+        l = rng.integers(0, 256, (B, h, w, 3), np.uint8)
+        r = np.roll(l, -SHIFT, axis=2)
+        if mi:
+            planes = mi_planes(l, r, kw["win_size"], kw["min_disp"],
+                               kw["max_disp"], 16, cons)
+            pkw = dict(H=h, W=w, gamma=10.0, f_max=0.0, ext_vol=True, **kw)
+        else:
+            planes = sd_planes(l, r, kw["win_size"], cons)
+            pkw = dict(H=h, W=w, gamma=10.0, f_max=f_max, **kw)
+        kd, pd, errs = versus(planes, pkw, f"GSW case {case}")
+        fk = gsw_cuda._finish(kd, B, w, kw["min_disp"], cons)
+        fp = gsw_cuda._finish(pd, B, w, kw["min_disp"], cons)
+        m = (fk != fp).double().mean().item()
+        check(m <= MISMATCH, f"GSW case {case}: final map mismatch {m:.2%}")
+        worst = [max(a, b) for a, b in zip(worst, errs)]
+    print(f"phase 11 GSW kernel vs twin on {len(GSW_CASES)} option cases at "
+          f"45x150 (SD, consistent stack, step 2, D 21, min_disp -3, win 1, "
+          f"D 1, normalize, MI ext_vol, B 2, win 111): ok | max abs err "
+          f"{worst[0]:.3g}, max rel err {worst[1]:.3g} (rtol {RTOL}), worst "
+          f"map mismatch {worst[2]:.4%} (limit {MISMATCH:.0%}), launch count "
+          f"+1 per call")
+
+    # ---- phase 12: the main path ----------------------------------------
+    m = StereoGSW(device="cuda", **GSW_MAIN)
+    win, lo, hi = (GSW_MAIN[k] for k in ("winSize", "minDisparity",
+                                         "maxDisparity"))
+    D = hi - lo + 1
+    pad = win // 2
+    pkw = dict(win_size=win, min_disp=lo, max_disp=hi,
+               gamma=float(GSW_MAIN["gamma"]), f_max=float(GSW_MAIN["fMax"]))
+    launches_main = None
+    e2e = {}
+    main_err = {}
+    for h, w in GSW_SHAPES:
+        left, right = pair(h, w)
+        lefts = np.stack([np.roll(left, i, axis=0) for i in range(8)])
+        rights = np.stack([np.roll(right, i, axis=0) for i in range(8)])
+        gsw_cuda.launches = 0
+        d = m.compute(left, right)
+        batch = m.computeBatch(lefts, rights)
+        per = [m.compute(lefts[i], rights[i]) for i in range(8)]
+        n = gsw_cuda.launches
+        check(d.shape == (h, w) and d.dtype == np.int16, f"GSW {h}x{w}: "
+              "shape")
+        frac = float((d[pad:-pad, hi + pad:-pad] == SHIFT).mean())
+        check(frac >= 0.95, f"GSW {h}x{w}: only {frac:.2%} of interior is "
+              f"{SHIFT}")
+        check(n == 10, f"GSW {h}x{w}: {n} kernel calls, expected 10")
+        for i in range(8):
+            check(np.array_equal(batch[i], per[i]),
+                  f"GSW {h}x{w}: batch frame {i} differs from per-frame")
+        if launches_main is None:
+            launches_main = n
+        del batch, per
+        e2e[(h, w)], n_e2e = host_ms(m.compute, list(zip(lefts, rights)))
+        _, _, main_err[(h, w)] = versus(
+            sd_planes(left[None], right[None], win), dict(H=h, W=w, **pkw),
+            f"GSW main path {w}x{h}")
+        a, r_, mm = main_err[(h, w)]
+        print(f"phase 12 GSW main path {w}x{h} win {win} D={D} consistent: "
+              f"{frac:.2%} of interior = {SHIFT}, calls {n}, batch of 8 "
+              f"bit-equal to per-frame, kernel vs twin max abs err {a:.3g} "
+              f"rel {r_:.3g} map mismatch {mm:.4%}, compute() median "
+              f"{e2e[(h, w)]:.2f} ms/frame end to end (host clock, "
+              f"n={n_e2e}) | {card}")
+        torch.cuda.empty_cache()
+
+    # ---- phase 13: the MI cost ------------------------------------------
+    (th, tw), (hh, hw) = GSW_SHAPES
+    left, right = pair(th, tw)
+    g05 = gamma05(right)
+    mm_ = StereoGSW(device="cuda", **GSW_MI)
+    gsw_cuda.launches = 0
+    d = mm_.compute(left, g05)
+    n = gsw_cuda.launches
+    frac = float((d[pad:-pad, hi + pad:-pad] == SHIFT).mean())
+    check(mm_.lastCostMethod == "mi", "MI: cost method not recorded")
+    check(n == GSW_MI["miIterations"], f"MI: {n} kernel calls, expected "
+          f"{GSW_MI['miIterations']}")
+    check(frac >= MI_BAR, f"MI: only {frac:.2%} of interior is {SHIFT} "
+          f"(bar {MI_BAR:.0%})")
+    cpu = StereoGSW(device="cpu", **GSW_MI).compute(left, g05)
+    cpu_frac = float((cpu[pad:-pad, hi + pad:-pad] == SHIFT).mean())
+    agree = float((d == cpu).mean())
+    check(agree >= MI_AGREE, f"MI: only {agree:.2%} of the card's map "
+          f"equals the CPU path's")
+    auto = StereoGSW(device="cuda", **dict(GSW_MI, costMethod="auto"))
+    auto.compute(left, g05)
+    check(auto.lastCostMethod == "mi", "auto did not resolve to mi on the "
+          "gamma-0.5 pair")
+    auto.compute(left, right)
+    check(auto.lastCostMethod == "sd", "auto did not resolve to sd on the "
+          "matched pair")
+    g05s = [(np.roll(left, i, axis=0), np.roll(g05, i, axis=0))
+            for i in range(6)]
+    mi_e2e, n_mi = host_ms(mm_.compute, g05s)
+    print(f"phase 13 GSW MI {tw}x{th} bins 24, 3 iterations, consistent, "
+          f"gamma-0.5 right image: {frac:.2%} of interior = {SHIFT} (bar "
+          f"{MI_BAR:.0%}; the CPU path {cpu_frac:.2%}, its map {agree:.2%} equal "
+          f"to the card's), calls {n}; auto "
+          f"-> mi on it, sd on the matched pair; compute() median "
+          f"{mi_e2e:.2f} ms/frame (host clock, n={n_mi}) | {card}")
+
+    # ---- phase 14: times --------------------------------------------------
+    def stacks(h, w, B, n, gamma=False):
+        left, right = pair(h, w)
+        if gamma:
+            right = gamma05(right)
+        return [(np.stack([np.roll(left, i * B + j, axis=0)
+                           for j in range(B)]),
+                 np.stack([np.roll(right, i * B + j, axis=0)
+                           for j in range(B)])) for i in range(n)]
+
+    def rate(h, w, B, ms):
+        return h * w * D * B / (ms * 1e-3) / 1e6
+
+    def run(h, w, **kw):
+        return lambda p: gsw_cuda._gsw_pass(p, H=h, W=w, **dict(pkw, **kw))
+
+    tsu = [sd_planes(ls, rs, win) for ls, rs in stacks(th, tw, 1, 11)]
+    k_ms, _ = cuda_ms(run(th, tw), tsu)
+    p_ms, _ = cuda_ms(lambda p: gsw_cuda._gsw_pass_plain(
+        p, H=th, W=tw, **pkw), tsu[:4])
+    # 2 frames (both directions) x pixels x lattice offsets x (10 + 2*D):
+    # the Pallas cost estimate's count (gsw_pallas.py:318); planes read
+    # once, both maps written once.
+    bound_ms, bound_by = bound(
+        2 * th * tw * win * win * (10 + 2 * D),
+        tsu[0].numel() * 4 + 2 * th * tw * 4)
+    del tsu
+    abs_err, rel_err, mism = main_err[(th, tw)]
+    print(f"phase 14a GSW {tw}x{th} win {win} D={D} consistent (2 frames): "
+          f"kernel {k_ms:.3f} ms ({rate(th, tw, 1, k_ms):.1f} "
+          f"Mpix*disp/s per frame pair), twin {p_ms:.1f} ms, bound "
+          f"{bound_ms:.4f} ms ({bound_by}); compute() {e2e[(th, tw)]:.2f} "
+          f"ms | {card}")
+    hd = [sd_planes(ls, rs, win) for ls, rs in stacks(hh, hw, 1, 6)]
+    hd_ms, _ = cuda_ms(run(hh, hw), hd)
+    hd_bound, hd_by = bound(2 * hh * hw * win * win * (10 + 2 * D),
+                            hd[0].numel() * 4 + 2 * hh * hw * 4)
+    del hd
+    b8 = [sd_planes(ls, rs, win) for ls, rs in stacks(th, tw, 8, 6)]
+    b8_ms, _ = cuda_ms(run(th, tw), b8)
+    del b8
+    mi = [mi_planes(ls, rs, win, lo, hi, GSW_MI["bins"])
+          for ls, rs in stacks(th, tw, 1, 6, gamma=True)]
+    mi_ms, _ = cuda_ms(run(th, tw, f_max=0.0, ext_vol=True), mi)
+    _, _, mi_err = versus(mi[0], dict(H=th, W=tw, f_max=0.0, ext_vol=True,
+                                      **{k: v for k, v in pkw.items()
+                                         if k != "f_max"}),
+                          f"GSW MI ext_vol {tw}x{th}")
+    del mi
+    print(f"phase 14b GSW kernel {hw}x{hh} (2 frames): {hd_ms:.3f} ms "
+          f"({rate(hh, hw, 1, hd_ms):.1f} Mpix*disp/s), bound "
+          f"{hd_bound:.4f} ms ({hd_by}), compute() {e2e[(hh, hw)]:.2f} "
+          f"ms; gsw_batch8 {tw}x{th} B=8 (16 frames, one call): {b8_ms:.3f} "
+          f"ms ({b8_ms / 8:.3f} ms/frame pair); MI ext_vol {tw}x{th} (2 "
+          f"frames): {mi_ms:.3f} ms, vs twin max rel err {mi_err[1]:.3g} map "
+          f"mismatch {mi_err[2]:.4%} | {card}")
+
+    # Where compute()'s time goes: device time (kernels and copies) against
+    # the wall of the same profiled calls, for SD and MI at 384x288.
+    def short(kernel):
+        return re.sub(r"^void |\(anonymous namespace\)::|at::native::|\(.*$",
+                      "", kernel)[:36].strip()
+
+    parts = []
+    for name, matcher, tgt in (("SD", m, right), ("MI", mm_, g05)):
+        dev_ms, ev, wall, heavy = profile_ms(matcher.compute, [
+            (np.roll(left, i, axis=0), np.roll(tgt, i, axis=0))
+            for i in range(5)])
+        parts.append(
+            f"{name}: device {dev_ms:.3f} ms of {wall:.3f} ms wall per frame "
+            f"(busy {dev_ms / wall:.2f}), {ev:.0f} device events; top "
+            + ", ".join(f"{short(k)} {v:.3f}" for k, v in heavy))
+    print(f"phase 14c GSW compute() profile {tw}x{th} (torch.profiler, 4 "
+          f"calls each) | " + " | ".join(parts) + f" | {card}")
+
+    return {"name": "gsw_pass", "route": "cuda",
+            "source": "simplestereo_tpu_torch/csrc/gsw_kernel.cu",
+            "replaces": "simplestereo_tpu/passive/gsw_pallas.py:99",
+            "launches": launches_main, "max_abs_err": abs_err,
+            "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None}
 
 
 def main():
@@ -334,14 +665,15 @@ def main():
           f"{sys.version.split()[0]}")
 
     t0 = time.perf_counter()
-    _build.build(["asw_kernel", "sgm_kernel"])
-    _build.load_library("asw_kernel")
-    _build.load_library("sgm_kernel")
+    names = ["asw_kernel", "sgm_kernel", "gsw_kernel"]
+    _build.build(names)
+    for name in names:
+        _build.load_library(name)
     build_s = time.perf_counter() - t0
-    ptxas = [f"{name}: {ln.strip()}" for name in ("asw_kernel", "sgm_kernel")
+    ptxas = [f"{name}: {ln.strip()}" for name in names
              for ln in _build.compile_log(name).splitlines()
              if "registers" in ln or "spill" in ln]
-    print(f"phase 2 build: asw_kernel + sgm_kernel in parallel {build_s:.2f} "
+    print(f"phase 2 build: {' + '.join(names)} in parallel {build_s:.2f} "
           f"s | " + " | ".join(ptxas))
 
     # ---- phase 3: kernel vs plain twin, every option case --------------
@@ -450,17 +782,27 @@ def main():
           f"{p_ms:.1f} ms ({rate(288, 384, 1, p_ms):.2f} Mpix*disp/s), "
           f"kernel/plain max abs err {abs_err:.3g} rel {rel_err:.3g} map "
           f"mismatch {mism:.4%} | {card}")
+    # The Pallas cost estimate's count (asw_pallas.py:474): 20 + 4*D
+    # operations per (pixel, window offset); planes read once, the cost
+    # volume and both maps written once.
+    bound_ms, bound_by = bound(
+        288 * 384 * MAIN["winSize"] ** 2 * (20 + 4 * D),
+        (tsu[0].numel() + sum(o.numel() for o in k[:3])) * 4)
     del tsu
     hd = planes_for(720, 1280, 1, 11)
     hd_ms, _ = cuda_ms(lambda p: asw_cuda._asw_pass(p, H=720, W=1280, **pkw),
                        hd)
+    hd_bound = bound(720 * 1280 * MAIN["winSize"] ** 2 * (20 + 4 * D),
+                     (hd[0].numel() + (D + 2) * 720 * 1280) * 4)
     del hd
     b8 = planes_for(288, 384, 8, 6)
     b8_ms, _ = cuda_ms(lambda p: asw_cuda._asw_pass(p, H=288, W=384, **pkw),
                        b8)
     del b8
     print(f"phase 6b kernel 1280x720: {hd_ms:.3f} ms "
-          f"({rate(720, 1280, 1, hd_ms):.1f} Mpix*disp/s); kernel 384x288 "
+          f"({rate(720, 1280, 1, hd_ms):.1f} Mpix*disp/s); bounds "
+          f"{bound_ms:.4f} ms at 384x288, {hd_bound[0]:.4f} ms at 1280x720 "
+          f"({bound_by}, {hd_bound[1]}); kernel 384x288 "
           f"B=8: {b8_ms:.3f} ms ({b8_ms / 8:.3f} ms/frame, "
           f"{rate(288, 384, 8, b8_ms):.1f} Mpix*disp/s) | {card}")
 
@@ -469,12 +811,15 @@ def main():
         "source": "simplestereo_tpu_torch/csrc/asw_kernel.cu",
         "replaces": "simplestereo_tpu/passive/asw_pallas.py:155",
         "launches": launches_main, "max_abs_err": abs_err,
-        "ms": k_ms, "plain_ms": p_ms}
+        "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms,
+        "bound_by": bound_by, "library_ms": None}
     del m
     torch.cuda.empty_cache()
     sgm_entry = sgm_phases(dev, card)
+    torch.cuda.empty_cache()
+    gsw_entry = gsw_phases(dev, card)
 
-    print(json.dumps({"kernels": [asw_entry, sgm_entry]}))
+    print(json.dumps({"kernels": [asw_entry, sgm_entry, gsw_entry]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -44,6 +44,12 @@ _SIGNATURES = {
                           _I),
         "sgm_error_string": ([_I], ctypes.c_char_p),
     },
+    "gsw_kernel": {
+        # planes, vol, disp, cost, B, C, H, W, Hp, Wp, win, step, min_disp,
+        # D, gamma, f_max, normalize, ext_vol, device, stream
+        "gsw_pass": ([_P] * 4 + [_I] * 10 + [_F] * 2 + [_I] * 3 + [_P], _I),
+        "gsw_error_string": ([_I], ctypes.c_char_p),
+    },
 }
 
 

@@ -5,8 +5,9 @@ passive
 Dense passive stereo matching, PyTorch port of
 :mod:`simplestereo_tpu.passive`. So far: the ASW matcher on its CUDA
 kernel (:mod:`.asw_cuda`), with the plain twin (:mod:`.asw_ref`) as the
-CPU path and oracle, and the SGM matcher (:mod:`.sgm`) on its path
-aggregation kernel (:mod:`.sgm_cuda`).
+CPU path and oracle, the SGM matcher (:mod:`.sgm`) on its path
+aggregation kernel (:mod:`.sgm_cuda`), and the GSW matcher (:mod:`.gsw`,
+SD and MI costs) on its support-weight kernel (:mod:`.gsw_cuda`).
 """
 
 import numpy as np
@@ -17,6 +18,9 @@ from .lab import bgr_to_lab
 from .asw_ref import asw_disparity_ref, occlusion_fill
 from .asw_cuda import asw_disparity, asw_disparity_batch
 from .sgm import StereoSGM, StereoSGBM_create, filter_speckles
+from .gsw import (MI_AUTO_THRESHOLD, StereoGSW, gsw_disparity,
+                  gsw_disparity_batch, radiometric_divergence,
+                  resolve_cost_method)
 
 
 class StereoASW:
@@ -110,4 +114,10 @@ __all__ = [
     "StereoSGM",
     "StereoSGBM_create",
     "filter_speckles",
+    "StereoGSW",
+    "gsw_disparity",
+    "gsw_disparity_batch",
+    "radiometric_divergence",
+    "resolve_cost_method",
+    "MI_AUTO_THRESHOLD",
 ]

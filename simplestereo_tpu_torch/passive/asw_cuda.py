@@ -74,7 +74,9 @@ def _prox(win_size, gamma_p, device):
     return torch.exp(-2.0 * dist / gamma_p)
 
 
-def _check_planes(planes, H, W, win_size, min_disp, max_disp, step):
+def _check_planes(planes, want, win_size, min_disp, max_disp, step):
+    """Raise ValueError unless the pass parameters are valid and
+    ``planes`` is a contiguous float32 (B, *want) stack."""
     if win_size <= 0 or win_size % 2 == 0:
         raise ValueError(f"win_size must be a positive odd number, got "
                          f"{win_size}")
@@ -82,8 +84,6 @@ def _check_planes(planes, H, W, win_size, min_disp, max_disp, step):
         raise ValueError(f"step must be >= 1, got {step}")
     if max_disp < min_disp:
         raise ValueError(f"max_disp {max_disp} < min_disp {min_disp}")
-    pad, left, right = _pads(win_size, min_disp, max_disp)
-    want = (12, H + 2 * pad, W + left + right)
     if planes.dim() != 4 or tuple(planes.shape[1:]) != want:
         raise ValueError(f"planes must be (B, {want[0]}, {want[1]}, "
                          f"{want[2]}), got {tuple(planes.shape)}")
@@ -108,7 +108,9 @@ def _asw_pass(planes, *, H, W, win_size, min_disp, max_disp, gamma_c,
     :func:`_asw_pass_plain`; any other device raises.
     """
     global launches
-    _check_planes(planes, H, W, win_size, min_disp, max_disp, step)
+    pad, left, right = _pads(win_size, min_disp, max_disp)
+    _check_planes(planes, (12, H + 2 * pad, W + left + right), win_size,
+                  min_disp, max_disp, step)
     kw = dict(H=H, W=W, win_size=win_size, min_disp=min_disp,
               max_disp=max_disp, gamma_c=gamma_c, gamma_p=gamma_p, step=step,
               consistent=consistent, subpixel=subpixel)
