@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the kernels of ``simplestereo_tpu_torch/csrc/`` (one nvcc per
-source, all started together) and drives the port's three main paths:
+source, all started together) and drives the port's main paths:
 
 - ASW: checks the ASW kernel against its plain PyTorch twin on the card,
   drives ``StereoASW(35, 14, 4, 15, 17.5, consistent=True).compute`` (the
@@ -22,7 +22,19 @@ source, all started together) and drives the port's three main paths:
   consistent=True).compute`` and ``computeBatch`` (the tuned Tsukuba-size
   point) at 384x288 and 1280x720, drives the MI cost on a gamma-0.5 pair,
   times kernel, twin and ``compute()``, and profiles ``compute()`` (device
-  time against wall time, SD and MI).
+  time against wall time, SD and MI);
+- K4, the dynamic-rotate probe: runs the probe's three amount forms at
+  (17, 8, 384) on the per-plane roll kernel (all must be exact, "neg"
+  included), holds it against numpy, its twin and a ragged shape, checks
+  that the ASW kernel's right map equals the argmin of its volume shifted
+  by the roll kernel at 384x288 and 1280x720, and times kernel, twin and
+  ``torch.gather``;
+- the README pipeline at 1280x720: a seeded random rig, a plane of
+  constant rectified disparity 9 covered in noise and rendered through
+  both distorted cameras, then ``directRectify`` -> ``rectifyImages`` ->
+  ``StereoASW(35, 14, 4, 15, 17.5, consistent=True).compute`` ->
+  ``get3DPoints`` -> ``exportPLY``/``importPLY``, checked against the CPU
+  path, the plane and a float64 reprojection, and timed stage by stage.
 
 Every kernel's JSON record carries ``bound_ms``, the least time the card
 could take for the kernel's work at the timed shape: the larger of its
@@ -214,6 +226,25 @@ def cuda_ms(fn, inputs):
         b.synchronize()
         ts.append(a.elapsed_time(b))
     return statistics.median(ts), ts
+
+
+def queued_ms(fn, inputs):
+    """CUDA-event ms per call of fn over inputs[1:], all queued behind a
+    sleep on the stream (inputs[0] warms up). The calls then run back to
+    back, so this is the device's time for a call without the host's
+    dispatch, which a lone call's events also hold (it dominates a call of
+    a few microseconds)."""
+    fn(inputs[0])
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(20_000_000)  # ~10 ms at the SM clock: the host queues
+    a.record()
+    for x in inputs[1:]:
+        fn(x)
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / (len(inputs) - 1)
 
 
 def host_ms(fn, inputs):
@@ -646,6 +677,353 @@ def gsw_phases(dev, card):
             "bound_by": bound_by, "library_ms": None}
 
 
+# Phase 16: the README pipeline on a seeded random 1280x720 rig, drawn as
+# tests/test_rectification.py draws them, looking at a plane covered in
+# noise whose rectified disparity is PLANE_DISP (inside 4..14) everywhere.
+RIG_SEED = 40
+PLANE_DISP = 9.0
+PIPE_SHAPE = (720, 1280)
+# Share of the valid interior whose disparity must lie within 1 px of the
+# plane's true rectified disparity; bound on the card's cloud against a
+# float64 numpy reprojection of the same map, relative to each point's
+# distance from the camera (a coordinate near 0 has no relative error to
+# speak of: x - cx cancels in float32).
+PLANE_BAR = 0.90
+CLOUD_RTOL = 1e-5
+
+
+def random_rig_args(seed=RIG_SEED):
+    """A random 1280x720 rig: modest rotation, mostly-x baseline, distinct
+    intrinsics, small distortion on both cameras."""
+    from simplestereo_tpu_torch.geometry import npgeom
+    rng = np.random.default_rng(seed)
+    f1 = rng.uniform(700, 1500)
+    f2 = f1 * rng.uniform(0.9, 1.1)
+    K1 = np.array([[f1, 0, rng.uniform(600, 680)],
+                   [0, f1 * rng.uniform(0.98, 1.02), rng.uniform(330, 390)],
+                   [0, 0, 1.0]])
+    K2 = np.array([[f2, 0, rng.uniform(600, 680)],
+                   [0, f2 * rng.uniform(0.98, 1.02), rng.uniform(330, 390)],
+                   [0, 0, 1.0]])
+    R = npgeom.rodrigues_to_matrix(rng.normal(0, 0.06, 3))
+    T = np.array([[-rng.uniform(60, 220)],
+                  [rng.normal(0, 5)], [rng.normal(0, 8)]])
+    d1 = np.r_[rng.normal(0, 0.05, 2), rng.normal(0, 0.002, 2), 0.0]
+    d2 = np.r_[rng.normal(0, 0.05, 2), rng.normal(0, 0.002, 2), 0.0]
+    return (1280, 720), (1280, 720), K1, K2, d1, d2, R, T
+
+
+def disparity_plane(rect, target):
+    """(n, c, p0): the plane n . X = c (camera-1 frame, |n| = 1) whose
+    rectified disparity is ``target`` at every pixel, and a point p0 on it.
+    The rectified views share their rows, so the points of one disparity
+    form a plane (with the two views' different x-shears it is not
+    fronto-parallel); three of them, triangulated through the rectified
+    projection matrices, fix it."""
+    P1, P2 = rect.getRectifiedProjectionMatrices()
+    w, h = rect.res1
+    pts = []
+    for u, v in ((0.25 * w, 0.25 * h), (0.75 * w, 0.25 * h),
+                 (0.5 * w, 0.75 * h)):
+        A = np.stack([u * P1[2] - P1[0], v * P1[2] - P1[1],
+                      (u - target) * P2[2] - P2[0], v * P2[2] - P2[1]])
+        X = np.linalg.svd(A)[2][-1]
+        pts.append(X[:3] / X[3])
+    n = np.cross(pts[1] - pts[0], pts[2] - pts[0])
+    n /= np.linalg.norm(n)
+    return n, float(n @ pts[0]), pts[0]
+
+
+def render_plane(rig, plane, shape, seed=SEED):
+    """The two distorted views of ``plane`` (from :func:`disparity_plane`)
+    covered in noise, about 2 px per texel, uint8 BGR: each pixel's ray is
+    undistorted, meets the plane, and the texture is sampled bilinearly
+    there in the plane's own coordinates."""
+    from simplestereo_tpu_torch.geometry import npgeom
+    n, c, p0 = plane
+    h, w = shape
+    n_tex = w // 2 + 200
+    tex = np.random.default_rng(seed).integers(
+        0, 256, (n_tex, n_tex, 3)).astype(np.float64)
+    texel = 2.0 * p0[2] / rig.intrinsic1[0, 0]
+    e1 = np.cross([0.0, 1.0, 0.0], n)
+    e1 /= np.linalg.norm(e1)
+    e2 = np.cross(n, e1)
+    u, v = np.meshgrid(np.arange(w, dtype=np.float64),
+                       np.arange(h, dtype=np.float64))
+    pix = np.stack([u, v], -1).reshape(-1, 2)
+    R, T = rig.R, rig.T.ravel()
+    views = []
+    for K, d, Rw, C in ((rig.intrinsic1, rig.distCoeffs1, np.eye(3),
+                         np.zeros(3)),
+                        (rig.intrinsic2, rig.distCoeffs2, R, -R.T @ T)):
+        ray = np.concatenate([npgeom.undistort_points(pix, K, d),
+                              np.ones((len(pix), 1))], 1) @ Rw
+        P = C + ray * ((c - n @ C) / (ray @ n))[:, None]
+        tx = (P - p0) @ e1 / texel + n_tex / 2
+        ty = (P - p0) @ e2 / texel + n_tex / 2
+        x0 = np.clip(np.floor(tx).astype(int), 0, n_tex - 2)
+        y0 = np.clip(np.floor(ty).astype(int), 0, n_tex - 2)
+        fx, fy = (tx - x0)[:, None], (ty - y0)[:, None]
+        val = ((tex[y0, x0] * (1 - fx) + tex[y0, x0 + 1] * fx) * (1 - fy)
+               + (tex[y0 + 1, x0] * (1 - fx) + tex[y0 + 1, x0 + 1] * fx) * fy)
+        views.append(np.clip(np.round(val), 0, 255).astype(np.uint8)
+                     .reshape(h, w, 3))
+    return views
+
+
+def true_disparity(rect, plane, shape):
+    """The plane's rectified disparity at every rectified left pixel: the
+    pixel's ray through P1 meets the plane, P2 projects the point."""
+    n, c, _ = plane
+    h, w = shape
+    P1, P2 = rect.getRectifiedProjectionMatrices()
+    u, v = np.meshgrid(np.arange(w, dtype=np.float64),
+                       np.arange(h, dtype=np.float64))
+    ray = np.stack([u, v, np.ones_like(u)], -1) @ np.linalg.inv(P1[:, :3]).T
+    X = ray * (c / (ray @ n))[..., None]
+    x2 = np.concatenate([X, np.ones_like(u)[..., None]], -1) @ P2.T
+    return u - x2[..., 0] / x2[..., 2]
+
+
+def uint8_close(a, b, where):
+    """Equal but for pixels at most 1 apart, at most 0.1% of them.
+    Returns the share of pixels that differ."""
+    d = np.abs(a.astype(np.int64) - b.astype(np.int64))
+    share = float((d > 0).mean())
+    check(a.shape == b.shape and a.dtype == b.dtype == np.uint8,
+          f"{where}: shape or type")
+    check(d.max() <= 1 and share <= 1e-3, f"{where}: max diff {d.max()}, "
+          f"{share:.4%} of pixels differ")
+    return share
+
+
+def rotate_phase(dev, card):
+    """Phase 15: K4 on the card. The probe's path (the three amount forms
+    at (17, 8, 384), counted), each form and a ragged shape against numpy
+    and the twin, K1's right map against the K4-shifted argmin at both ASW
+    sizes, and times. Returns the kernel's JSON record."""
+    from simplestereo_tpu_torch.passive import asw_cuda
+    from simplestereo_tpu_torch.probes import rotate
+
+    check(rotate.launches == 0, "K4 launched on a matcher's path")
+    rotate.launches = 0
+    exact = rotate.probe(device=dev)
+    launches_main = rotate.launches
+    check(all(exact.values()), f"K4 probe: not exact {exact}")
+    check(launches_main == len(rotate.MODES), f"K4 probe: {launches_main} "
+          "launches")
+
+    D, TH, W = rotate.PROBE_SHAPE
+    xn = rotate.probe_input()
+    x = torch.tensor(xn, device=dev)
+    expect = torch.tensor(np.stack([np.roll(xn[d], -d, axis=1)
+                                    for d in range(D)]), device=dev)
+    err = 0.0
+    for mode in rotate.MODES:
+        s = rotate.probe_amounts(mode, D, W)
+        k = rotate.roll_planes(x, s)
+        p = rotate._roll_planes_plain(x, torch.tensor(s, dtype=torch.int32))
+        check(torch.equal(k, expect), f"K4 {mode}: differs from np.roll")
+        check(torch.equal(k, p), f"K4 {mode}: differs from the twin")
+        err = max(err, (k - p).abs().max().item())
+    rng = np.random.default_rng(SEED + 4)
+    xr = rng.standard_normal((5, 3, 37)).astype(np.float32)
+    for shifts in ([0, -1, -36, 5, 36], [37, -37, 74, -75, 1000],
+                   [2**31 - 1, -2**31, 38, -38, -1000003]):
+        k = rotate.roll_planes(torch.tensor(xr, device=dev), shifts)
+        want = np.stack([np.roll(xr[n], s, axis=1)
+                         for n, s in enumerate(shifts)])
+        check(np.array_equal(k.cpu().numpy(), want),
+              f"K4 ragged {shifts}: differs from np.roll")
+
+    # What the probe guards: K1's dispR is the K4-shifted argmin.
+    pkw = dict(win_size=MAIN["winSize"], min_disp=MAIN["minDisparity"],
+               max_disp=MAIN["maxDisparity"], gamma_c=float(MAIN["gammaC"]),
+               gamma_p=float(MAIN["gammaP"]), consistent=True)
+    for h, w in ((288, 384), PIPE_SHAPE):
+        left, right = pair(h, w)
+        planes = asw_cuda._build_planes(
+            torch.tensor(left[None], device=dev),
+            torch.tensor(right[None], device=dev), pkw["win_size"],
+            pkw["min_disp"], pkw["max_disp"])
+        cost, _, dispR, _ = asw_cuda._asw_pass(planes, H=h, W=w, **pkw)
+        check(torch.equal(rotate.right_map(cost, pkw["min_disp"]), dispR),
+              f"K4 right map {w}x{h}: differs from K1's dispR")
+        del planes, cost, dispR
+
+    def times(shape, n, min_disp):
+        N, R, Wd = shape
+        s = torch.arange(min_disp, min_disp + N, dtype=torch.int32,
+                         device=dev).neg()
+        xs = [torch.randn(shape, device=dev) for _ in range(n)]
+        idx = ((torch.arange(Wd, device=dev)[None, :] - s.long()[:, None])
+               % Wd)[:, None, :].expand(shape)
+        kernel = lambda t: rotate.roll_planes(t, s)  # noqa: E731
+        gather = lambda t: torch.gather(t, 2, idx)  # noqa: E731
+        k_ms, _ = cuda_ms(kernel, xs)
+        p_ms, _ = cuda_ms(lambda t: rotate._roll_planes_plain(t, s), xs)
+        lib_ms, _ = cuda_ms(gather, xs)
+        check(torch.equal(gather(xs[0]), kernel(xs[0])),
+              f"K4 {shape}: the gather disagrees with the kernel")
+        # bytes: the volume read once and written once, plus the amounts
+        bnd = bound(0, 2 * 4 * N * R * Wd + 4 * N)
+        return (k_ms, p_ms, lib_ms, bnd,
+                queued_ms(kernel, xs), queued_ms(gather, xs))
+
+    k_ms, p_ms, lib_ms, (bound_ms, bound_by), kq, lq = times(
+        rotate.PROBE_SHAPE, 21, 0)
+    D720 = MAIN["maxDisparity"] - MAIN["minDisparity"] + 1
+    hk, hp, hl, (hb, _), hkq, hlq = times((D720,) + PIPE_SHAPE, 11,
+                                          MAIN["minDisparity"])
+    print(f"phase 15 K4 probe: pos/neg/rem exact on the card (torch.equal to "
+          f"np.roll and to the twin), probe path launches {launches_main} "
+          f"(0 on the matchers' and the pipeline's paths); ragged (5, 3, 37) "
+          f"with amounts < 0 and > W exact; K1 dispR bit-equal to the "
+          f"K4-shifted argmin at 384x288 and 1280x720 | one call each "
+          f"(queued behind a sleep: device time alone) | (17, 8, 384): "
+          f"kernel {k_ms:.4f} ({kq:.4f}) ms, twin {p_ms:.4f} ms, gather "
+          f"{lib_ms:.4f} ({lq:.4f}) ms, bound {bound_ms:.6f} ms ({bound_by}) "
+          f"| (11, 720, 1280): kernel {hk:.4f} ({hkq:.4f}) ms, twin "
+          f"{hp:.4f} ms, gather {hl:.4f} ({hlq:.4f}) ms, bound {hb:.4f} ms "
+          f"| {card}")
+    return {"name": "rotate_planes", "route": "cuda",
+            "source": "simplestereo_tpu_torch/csrc/rotate_kernel.cu",
+            "replaces": "benchmarks/probe_dynamic_rotate.py:34",
+            "launches": launches_main, "max_abs_err": err,
+            "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": lib_ms}
+
+
+def pipeline_phase(dev, card):
+    """Phase 16: the README pipeline at 1280x720 on the card: rig ->
+    directRectify -> rectifyImages -> StereoASW(consistent) -> get3DPoints
+    -> exportPLY/importPLY, checked against the CPU path, the plane's true
+    disparity and a float64 reprojection, and timed stage by stage."""
+    import os
+    import tempfile
+
+    import simplestereo_tpu_torch as tss
+    from simplestereo_tpu_torch.passive import StereoASW, asw_cuda
+    from simplestereo_tpu_torch.probes import rotate
+
+    h, w = PIPE_SHAPE
+    args = random_rig_args()
+    rect = tss.rectification.directRectify(tss.StereoRig(*args, device=dev))
+    check(rect.device == dev and rect.mapx1.device == dev,
+          "pipeline: maps not on the card")
+    plane = disparity_plane(rect, PLANE_DISP)
+    left, right = render_plane(rect, plane, PIPE_SHAPE)
+    lefts = [np.roll(left, i, axis=0) for i in range(3)]
+    rights = [np.roll(right, i, axis=0) for i in range(3)]
+    m = StereoASW(device="cuda", **MAIN)
+
+    stages = ("rectifyImages", "compute", "get3DPoints", "exportPLY")
+    times = {k: [] for k in stages + ("chain",)}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "cloud.ply")
+        for i in range(len(lefts)):
+            if i == 0:
+                asw_cuda.launches = rotate.launches = 0
+            t = [time.perf_counter()]
+            l, r = rect.rectifyImages(lefts[i], rights[i])
+            t.append(time.perf_counter())
+            d = m.compute(l, r)
+            t.append(time.perf_counter())
+            pts = rect.get3DPoints(d)
+            t.append(time.perf_counter())
+            tss.points.exportPLY(pts, path, referenceImage=l)
+            t.append(time.perf_counter())
+            if i == 0:
+                n, n4 = asw_cuda.launches, rotate.launches
+                frame0 = (l, r, d, pts, tss.points.importPLY(path, *range(6)))
+                continue  # the first chain warms up
+            for k, a, b in zip(stages, t, t[1:]):
+                times[k].append((b - a) * 1e3)
+            times["chain"].append((t[-1] - t[0]) * 1e3)
+    l, r, d, pts, back = frame0
+    check(n == 1, f"pipeline: {n} ASW kernel launches, expected 1")
+    check(n4 == 0, f"pipeline: {n4} K4 launches, expected 0")
+
+    # The rectified pair against the CPU path's.
+    cpu = tss.rectification.directRectify(tss.StereoRig(*args, device="cpu"))
+    cl, cr = cpu.rectifyImages(left, right)
+    shares = [uint8_close(l, cl, "rectified left"),
+              uint8_close(r, cr, "rectified right")]
+    map_err = max((getattr(rect, k).cpu() - getattr(cpu, k)).abs().max().item()
+                  for k in ("mapx1", "mapy1", "mapx2", "mapy2"))
+
+    # The disparity against the plane's, where both views see the plane
+    # and the window and every candidate stay inside the image.
+    truth = true_disparity(rect, plane, PIPE_SHAPE)
+
+    def inside(mx, my):
+        mx, my = mx.cpu().numpy(), my.cpu().numpy()
+        return (mx >= 0) & (mx <= w - 1) & (my >= 0) & (my <= h - 1)
+
+    from scipy.ndimage import binary_erosion
+    pad = MAIN["winSize"] // 2
+    valid = inside(rect.mapx1, rect.mapy1) & inside(rect.mapx2, rect.mapy2)
+    valid = binary_erosion(valid, np.ones((2 * pad + 1, 2 * pad + 1)))
+    valid[:, :MAIN["maxDisparity"] + pad] = False
+    check(valid.mean() > 0.5, f"pipeline: valid interior {valid.mean():.2%}")
+    lo, hi = truth[valid].min(), truth[valid].max()
+    check(MAIN["minDisparity"] + 0.5 <= lo and hi <= MAIN["maxDisparity"]
+          - 0.5, f"pipeline: plane disparity {lo:.2f}..{hi:.2f} leaves the "
+          "search range")
+    frac = float((np.abs(d[valid] - truth[valid]) <= 1.0).mean())
+    check(frac >= PLANE_BAR, f"pipeline: only {frac:.2%} of the interior "
+          f"within 1 px of the plane's disparity")
+
+    # The cloud against a float64 reprojection through Q.
+    check(pts.shape == (h, w, 3) and pts.dtype == np.float32,
+          "pipeline: cloud shape")
+    u, v = np.meshgrid(np.arange(w, dtype=np.float64),
+                       np.arange(h, dtype=np.float64))
+    hq = np.stack([u, v, d.astype(np.float64), np.ones_like(u)], -1) \
+        @ rect.getQMatrix().T
+    with np.errstate(divide="ignore", invalid="ignore"):
+        ref = hq[..., :3] / hq[..., 3:]
+    fin = np.isfinite(ref)
+    check(np.array_equal(np.isfinite(pts), fin), "pipeline: the cloud's "
+          "non-finite pattern differs from the reprojection's")
+    ok = fin.all(-1)
+    rel = float((np.abs(pts[ok] - ref[ok]).max(-1)
+                 / np.linalg.norm(ref[ok], axis=-1)).max())
+    check(rel <= CLOUD_RTOL, f"pipeline: cloud rel err {rel:.3g}")
+
+    # The PLY round trip.
+    flat = pts.reshape(-1, 3)
+    rows = np.isfinite(flat).all(1)
+    check(back.shape == (h * w, 6), "pipeline: PLY rows")
+    check(np.array_equal(back[:, 3:], l.reshape(-1, 3)[:, ::-1]),
+          "pipeline: PLY colours")
+    ply_err = float(np.abs(back[rows, :3] - flat[rows]).max())
+    check(ply_err <= 1e-6, f"pipeline: PLY coordinates off by {ply_err:.3g}")
+
+    # Map build alone, on the card.
+    torch.cuda.synchronize()
+    build = []
+    for _ in range(4):
+        t0 = time.perf_counter()
+        rect.computeRectificationMaps()
+        torch.cuda.synchronize()
+        build.append((time.perf_counter() - t0) * 1e3)
+    med = {k: statistics.median(v) for k, v in times.items()}
+    print(f"phase 16 README pipeline {w}x{h}: rig seed {RIG_SEED}, plane at "
+          f"disparity {lo:.2f}..{hi:.2f}; rectified pair vs the CPU path: "
+          f"{shares[0]:.4%} / {shares[1]:.4%} of pixels 1 apart (maps within "
+          f"{map_err:.3g} px); {frac:.2%} of the valid interior "
+          f"({valid.mean():.1%} of pixels) within 1 px of the plane; cloud "
+          f"vs float64 reprojection rel err {rel:.3g}; PLY round trip within "
+          f"{ply_err:.3g}; ASW launches 1 | host clock, median of "
+          f"{len(times['chain'])} frames: map build "
+          f"{statistics.median(build[1:]):.2f} ms, rectifyImages "
+          f"{med['rectifyImages']:.2f} ms, compute {med['compute']:.2f} ms, "
+          f"get3DPoints {med['get3DPoints']:.2f} ms, exportPLY "
+          f"{med['exportPLY']:.1f} ms, chain {med['chain']:.1f} ms | {card}")
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False: needs a "
@@ -665,7 +1043,7 @@ def main():
           f"{sys.version.split()[0]}")
 
     t0 = time.perf_counter()
-    names = ["asw_kernel", "sgm_kernel", "gsw_kernel"]
+    names = ["asw_kernel", "sgm_kernel", "gsw_kernel", "rotate_kernel"]
     _build.build(names)
     for name in names:
         _build.load_library(name)
@@ -818,8 +1196,13 @@ def main():
     sgm_entry = sgm_phases(dev, card)
     torch.cuda.empty_cache()
     gsw_entry = gsw_phases(dev, card)
+    torch.cuda.empty_cache()
+    rotate_entry = rotate_phase(dev, card)
+    torch.cuda.empty_cache()
+    pipeline_phase(dev, card)
 
-    print(json.dumps({"kernels": [asw_entry, sgm_entry, gsw_entry]}))
+    print(json.dumps({"kernels": [asw_entry, sgm_entry, gsw_entry,
+                                  rotate_entry]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -10,6 +10,16 @@ C interface keeps the build to seconds (a source that includes PyTorch's
 headers takes minutes). Nothing is fetched: the sources are the
 repository's own.
 
+The sources, one per TPU kernel of the JAX package:
+
+- ``asw_kernel.cu``: ASW cost + select (K1, ``asw_pallas._asw_kernel``);
+- ``sgm_kernel.cu``: SGM path aggregation (K2,
+  ``sgm_pallas._sgm_scan_kernel``);
+- ``gsw_kernel.cu``: GSW volume + support-weight aggregation (K3,
+  ``gsw_pallas._gsw_kernel``);
+- ``rotate_kernel.cu``: per-plane dynamic roll (K4, the
+  ``benchmarks/probe_dynamic_rotate.py`` probe).
+
 Pointers and the stream are passed as ``c_void_p``, integers as ``c_int``
 and floats as ``c_float``; every C entry returns ``cudaGetLastError()`` of
 its launches, which the caller turns into an exception.
@@ -49,6 +59,11 @@ _SIGNATURES = {
         # D, gamma, f_max, normalize, ext_vol, device, stream
         "gsw_pass": ([_P] * 4 + [_I] * 10 + [_F] * 2 + [_I] * 3 + [_P], _I),
         "gsw_error_string": ([_I], ctypes.c_char_p),
+    },
+    "rotate_kernel": {
+        # x, shifts, out, N, R, W, device, stream
+        "rotate_planes": ([_P] * 3 + [_I] * 4 + [_P], _I),
+        "rotate_error_string": ([_I], ctypes.c_char_p),
     },
 }
 

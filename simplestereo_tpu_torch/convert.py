@@ -8,10 +8,12 @@ The matchers hold no learned weights: their whole state is their
 constructor parameters (for SGM with P1 and P2 already resolved from
 their defaults), so converting one is reading them. The JAX matchers'
 engine choice (``aggregator``, ``engine``) has no counterpart: the
-device decides. Attributes are read
-with ``getattr``, so this module imports neither ``jax`` nor
-``simplestereo_tpu``.
+device decides. A rig's state is its float64 arrays, copied by
+:func:`rig_from_jax`. Attributes are read with ``getattr``, so this module
+imports neither ``jax`` nor ``simplestereo_tpu``.
 """
+
+import numpy as np
 
 from .passive import StereoASW, StereoGSW, StereoSGM
 
@@ -45,3 +47,33 @@ def gsw_from_jax(matcher, device="cuda"):
     ``simplestereo_tpu.passive.StereoGSW``) computes, on ``device``."""
     return StereoGSW(**{k: getattr(matcher, k) for k in _GSW_PARAMS},
                      device=device)
+
+
+_RIG_PARAMS = ("res1", "res2", "intrinsic1", "intrinsic2", "distCoeffs1",
+               "distCoeffs2", "R", "T", "F", "E", "reprojectionError")
+_RECT_PARAMS = ("Rcommon", "rectHomography1", "rectHomography2")
+
+
+def rig_from_jax(rig, device="cuda"):
+    """Port's rig holding what ``rig`` (a ``simplestereo_tpu`` StereoRig,
+    RectifiedStereoRig or StructuredLightRig) holds, on ``device``.
+
+    The float64 arrays are copied. A rectified rig keeps its homographies
+    and ``Rcommon`` and rebuilds its maps on ``device``; a structured-light
+    rig recomputes its rectifying transforms from the same parameters.
+    """
+    from .rigs import RectifiedStereoRig, StereoRig, StructuredLightRig
+
+    def copy(v):
+        return None if v is None else np.array(v, np.float64)
+
+    params = [getattr(rig, k) for k in _RIG_PARAMS]
+    params[2:10] = [copy(v) for v in params[2:10]]
+    if all(hasattr(rig, k) for k in _RECT_PARAMS):
+        return RectifiedStereoRig(*(copy(getattr(rig, k))
+                                    for k in _RECT_PARAMS),
+                                  *params, device=device)
+    plain = StereoRig(*params, device=device)
+    if hasattr(rig, "R_inv"):
+        return StructuredLightRig(plain)
+    return plain
