@@ -134,11 +134,15 @@ GSW_CASES = [
     dict(win_size=7, min_disp=4, max_disp=14, consistent=True, B=2),
     dict(win_size=111, min_disp=1, max_disp=6, consistent=True),
 ]
-# Option cases of the kernel, at a small ragged size (not a multiple of
-# the (32, 8) block): lattice step, D > 16 (two register chunks),
-# negative min_disp, sub-pixel neighbourhood, a frame batch. Every range
-# holds the pair's true shift: without it every TAD of a noise pair hits
-# the cap, all costs tie to the last ulp and the argmin is noise.
+# Option cases of the kernel, at a small ragged size (45x150, not a
+# multiple of the (32, 8) tile, unless the case says otherwise): lattice
+# step 2 and 3, D over one chunk of 12 disparities (18, 20, 41),
+# negative min_disp, sub-pixel neighbourhood, a frame batch, a window of
+# 111 (wider than the tile: a 142-column halo, the chunk drops to 4 to
+# fit), B = 2 at 37x101. Every range holds the pair's true shift: without
+# it every TAD of a noise pair hits the cap, all costs tie to the last ulp
+# and the argmin is noise. Each case runs the shared-memory tile kernel
+# and the L1 kernel (the path of a window too wide for any tile).
 CASES = [
     dict(win_size=7, min_disp=1, max_disp=6, consistent=False),
     dict(win_size=7, min_disp=1, max_disp=6, consistent=True),
@@ -148,6 +152,11 @@ CASES = [
     dict(win_size=5, min_disp=1, max_disp=6, consistent=False, subpixel=True),
     dict(win_size=9, min_disp=4, max_disp=14, consistent=True, subpixel=True,
          B=2),
+    dict(win_size=111, min_disp=1, max_disp=6, consistent=True),
+    dict(win_size=7, min_disp=0, max_disp=40, consistent=True),
+    dict(win_size=9, min_disp=1, max_disp=6, consistent=True, step=3),
+    dict(win_size=5, min_disp=2, max_disp=8, consistent=True, subpixel=True,
+         B=2, h=37, w=101),
 ]
 
 
@@ -836,6 +845,20 @@ def rotate_phase(dev, card):
                          for n, s in enumerate(shifts)])
         check(np.array_equal(k.cpu().numpy(), want),
               f"K4 ragged {shifts}: differs from np.roll")
+    # A ragged row at volume size (W = 1277: rows not 16-byte aligned, the
+    # scalar path) and the volume's own width (the 16-byte path), amounts
+    # that are not multiples of 4, negative, beyond W and at the int32 ends.
+    amounts = [-4, -5, 1, 2, 3, 1281, -2558, 2**31 - 1, -2**31, 7, -1000003]
+    for wd in (1277, 1280):
+        xv = rng.standard_normal((11, 720, wd)).astype(np.float32)
+        k = rotate.roll_planes(torch.tensor(xv, device=dev), amounts)
+        p = rotate._roll_planes_plain(torch.tensor(xv, device=dev),
+                                      torch.tensor(amounts, dtype=torch.int32))
+        want = np.stack([np.roll(xv[n], s, axis=1)
+                         for n, s in enumerate(amounts)])
+        check(np.array_equal(k.cpu().numpy(), want) and torch.equal(k, p),
+              f"K4 (11, 720, {wd}): differs from np.roll or the twin")
+        del xv, k, p
 
     # What the probe guards: K1's dispR is the K4-shifted argmin.
     pkw = dict(win_size=MAIN["winSize"], min_disp=MAIN["minDisparity"],
@@ -868,24 +891,34 @@ def rotate_phase(dev, card):
               f"K4 {shape}: the gather disagrees with the kernel")
         # bytes: the volume read once and written once, plus the amounts
         bnd = bound(0, 2 * 4 * N * R * Wd + 4 * N)
-        return (k_ms, p_ms, lib_ms, bnd,
-                queued_ms(kernel, xs), queued_ms(gather, xs))
+        # Queued: kernel and gather in turns (kernel, gather, gather,
+        # kernel), the better of each pair.
+        kq1, lq1, lq2, kq2 = (queued_ms(f, xs)
+                              for f in (kernel, gather, gather, kernel))
+        kq, lq = min(kq1, kq2), min(lq1, lq2)
+        check(kq <= lq, f"K4 {shape}: queued kernel {kq:.4f} ms slower than "
+              f"the gather's {lq:.4f} ms")
+        return k_ms, p_ms, lib_ms, bnd, kq, lq, 2 * 4 * N * R * Wd / kq / 1e9
 
-    k_ms, p_ms, lib_ms, (bound_ms, bound_by), kq, lq = times(
+    k_ms, p_ms, lib_ms, (bound_ms, bound_by), kq, lq, tb = times(
         rotate.PROBE_SHAPE, 21, 0)
     D720 = MAIN["maxDisparity"] - MAIN["minDisparity"] + 1
-    hk, hp, hl, (hb, _), hkq, hlq = times((D720,) + PIPE_SHAPE, 11,
-                                          MAIN["minDisparity"])
+    hk, hp, hl, (hb, _), hkq, hlq, htb = times((D720,) + PIPE_SHAPE, 11,
+                                               MAIN["minDisparity"])
     print(f"phase 15 K4 probe: pos/neg/rem exact on the card (torch.equal to "
           f"np.roll and to the twin), probe path launches {launches_main} "
           f"(0 on the matchers' and the pipeline's paths); ragged (5, 3, 37) "
-          f"with amounts < 0 and > W exact; K1 dispR bit-equal to the "
-          f"K4-shifted argmin at 384x288 and 1280x720 | one call each "
-          f"(queued behind a sleep: device time alone) | (17, 8, 384): "
-          f"kernel {k_ms:.4f} ({kq:.4f}) ms, twin {p_ms:.4f} ms, gather "
-          f"{lib_ms:.4f} ({lq:.4f}) ms, bound {bound_ms:.6f} ms ({bound_by}) "
-          f"| (11, 720, 1280): kernel {hk:.4f} ({hkq:.4f}) ms, twin "
-          f"{hp:.4f} ms, gather {hl:.4f} ({hlq:.4f}) ms, bound {hb:.4f} ms "
+          f"and (11, 720, 1277), and (11, 720, 1280), with amounts < 0, > W, "
+          f"not multiples of 4 and INT_MIN/INT_MAX exact; K1 dispR "
+          f"bit-equal to the K4-shifted argmin at 384x288 and 1280x720 | one "
+          f"call each (queued behind a sleep: device time alone; the queued "
+          f"kernel no slower than the queued gather at both shapes) | "
+          f"(17, 8, 384): kernel {k_ms:.4f} ({kq:.4f}) ms, twin "
+          f"{p_ms:.4f} ms, gather {lib_ms:.4f} ({lq:.4f}) ms, bound "
+          f"{bound_ms:.6f} ms ({bound_by}), queued {tb:.3f} TB/s | "
+          f"(11, 720, 1280): kernel {hk:.4f} ({hkq:.4f}) ms, twin "
+          f"{hp:.4f} ms, gather {hl:.4f} ({hlq:.4f}) ms, bound {hb:.4f} ms, "
+          f"queued {htb:.3f} TB/s ({hb / hkq:.0%} of the memory rate) "
           f"| {card}")
     return {"name": "rotate_planes", "route": "cuda",
             "source": "simplestereo_tpu_torch/csrc/rotate_kernel.cu",
@@ -1056,10 +1089,11 @@ def main():
 
     # ---- phase 3: kernel vs plain twin, every option case --------------
     worst = [0.0, 0.0, 0.0]
+    paths = set()
     for case in CASES:
         kw = dict(case)
         B = kw.pop("B", 1)
-        h, w = 45, 150
+        h, w = kw.pop("h", 45), kw.pop("w", 150)
         rng = np.random.default_rng(SEED + 1)
         l = rng.integers(0, 256, (B, h, w, 3), np.uint8)
         r = np.roll(l, -SHIFT, axis=2)
@@ -1067,24 +1101,34 @@ def main():
             torch.tensor(l, device=dev), torch.tensor(r, device=dev),
             kw["win_size"], kw["min_disp"], kw["max_disp"])
         pkw = dict(H=h, W=w, gamma_c=5.0, gamma_p=17.5, **kw)
-        n0 = asw_cuda.launches
-        k = asw_cuda._asw_pass(planes, **pkw)
-        torch.cuda.synchronize()
-        check(asw_cuda.launches == n0 + 1, "launch not counted")
+        D = kw["max_disp"] - kw["min_disp"] + 1
         p = asw_cuda._asw_pass_plain(planes, **pkw)
-        errs = compare_pass(k, p, kw["min_disp"], f"case {case}")
         fkw = dict(W=w, min_disp=kw["min_disp"], max_disp=kw["max_disp"],
                    consistent=kw["consistent"],
                    subpixel=kw.get("subpixel", False))
-        fk = asw_cuda._finish(*k[1:], **fkw)
         fp = asw_cuda._finish(*p[1:], **fkw)
-        m = (fk.floor() != fp.floor()).double().mean().item()
-        check(m <= MISMATCH, f"case {case}: final map mismatch {m:.2%}")
-        worst = [max(a, b) for a, b in zip(worst, errs)]
-    print(f"phase 3 kernel vs plain on {len(CASES)} option cases at 45x150: "
+        for plan in (asw_cuda._plan(kw["win_size"], kw.get("step", 1), D, B,
+                                    h, w),
+                     asw_cuda._plan(kw["win_size"], kw.get("step", 1), D, B,
+                                    h, w, budgets=())):
+            where = f"case {case} {plan['path']} path"
+            n0 = asw_cuda.launches
+            k = asw_cuda._asw_pass(planes, plan=plan, **pkw)
+            torch.cuda.synchronize()
+            check(asw_cuda.launches == n0 + 1, f"{where}: launch not counted")
+            errs = compare_pass(k, p, kw["min_disp"], where)
+            fk = asw_cuda._finish(*k[1:], **fkw)
+            m = (fk.floor() != fp.floor()).double().mean().item()
+            check(m <= MISMATCH, f"{where}: final map mismatch {m:.2%}")
+            worst = [max(a, b) for a, b in zip(worst, errs)]
+            paths.add(plan["path"])
+    check(paths == {"tile", "l1"}, f"phase 3 ran paths {paths}")
+    print(f"phase 3 kernel vs plain on {len(CASES)} option cases (45x150 "
+          f"unless stated; step 2/3, D 18/20/41, min_disp -3, subpixel, "
+          f"B 2, win 111, B 2 at 37x101), each on the tile and the L1 path: "
           f"ok | max abs err {worst[0]:.3g}, max rel err {worst[1]:.3g} "
           f"(rtol {RTOL}), worst map mismatch {worst[2]:.4%} "
-          f"(limit {MISMATCH:.0%})")
+          f"(limit {MISMATCH:.0%}), launch count +1 per call")
 
     # ---- phases 4-5: the main path -------------------------------------
     m = StereoASW(device="cuda", **MAIN)
@@ -1146,20 +1190,35 @@ def main():
     def rate(h, w, B, ms):
         return h * w * D * B / (ms * 1e-3) / 1e6
 
+    def l1_run(h, w):
+        """The L1 kernel (the first version of K1) on the same inputs."""
+        plan = asw_cuda._plan(pkw["win_size"], 1, D, 1, h, w, budgets=())
+        return lambda p: asw_cuda._asw_pass(p, H=h, W=w, plan=plan, **pkw)
+
+    plan = asw_cuda._plan(pkw["win_size"], 1, D, 1, 288, 384)
+    regs, spill, blocks = asw_cuda.occupancy(plan, dev)
+    check(plan["path"] == "tile" and spill == 0 and blocks * 8 > 16,
+          f"K1 main plan {plan}: {regs} registers, {spill} B spilled, "
+          f"{blocks} blocks an SM")
     tsu = planes_for(288, 384, 1, 11)
     run_k = lambda p: asw_cuda._asw_pass(p, H=288, W=384, **pkw)
     run_p = lambda p: asw_cuda._asw_pass_plain(p, H=288, W=384, **pkw)
     k_ms, _ = cuda_ms(run_k, tsu)
+    l1_ms, _ = cuda_ms(l1_run(288, 384), tsu)
     p_ms, _ = cuda_ms(run_p, tsu[:4])
     k = run_k(tsu[0])
     p = run_p(tsu[0])
     abs_err, rel_err, mism = compare_pass(
         k, p, pkw["min_disp"], "main path 384x288")
     print(f"phase 6a 384x288 D={D} win 35: kernel {k_ms:.3f} ms "
-          f"({rate(288, 384, 1, k_ms):.1f} Mpix*disp/s), plain "
-          f"{p_ms:.1f} ms ({rate(288, 384, 1, p_ms):.2f} Mpix*disp/s), "
-          f"kernel/plain max abs err {abs_err:.3g} rel {rel_err:.3g} map "
-          f"mismatch {mism:.4%} | {card}")
+          f"({rate(288, 384, 1, k_ms):.1f} Mpix*disp/s; L1 path, the first "
+          f"version, {l1_ms:.3f} ms), plain {p_ms:.1f} ms "
+          f"({rate(288, 384, 1, p_ms):.2f} Mpix*disp/s), kernel/plain max "
+          f"abs err {abs_err:.3g} rel {rel_err:.3g} map mismatch "
+          f"{mism:.4%} | occupancy: tile plan chunk {plan['chunk']}, "
+          f"{plan['jg']} columns an e2 group, {plan['smem']} B dynamic "
+          f"shared memory a block, {regs} registers, {spill} B spilled, "
+          f"{blocks} blocks = {blocks * 8} warps resident an SM | {card}")
     # The Pallas cost estimate's count (asw_pallas.py:474): 20 + 4*D
     # operations per (pixel, window offset); planes read once, the cost
     # volume and both maps written once.
@@ -1167,18 +1226,23 @@ def main():
         288 * 384 * MAIN["winSize"] ** 2 * (20 + 4 * D),
         (tsu[0].numel() + sum(o.numel() for o in k[:3])) * 4)
     del tsu
-    hd = planes_for(720, 1280, 1, 11)
-    hd_ms, _ = cuda_ms(lambda p: asw_cuda._asw_pass(p, H=720, W=1280, **pkw),
-                       hd)
+    hd = planes_for(720, 1280, 1, 6)
+    run_hd = lambda p: asw_cuda._asw_pass(p, H=720, W=1280, **pkw)
+    hd_ms, _ = cuda_ms(run_hd, hd)
+    hd_l1_ms, _ = cuda_ms(l1_run(720, 1280), hd)
     hd_bound = bound(720 * 1280 * MAIN["winSize"] ** 2 * (20 + 4 * D),
                      (hd[0].numel() + (D + 2) * 720 * 1280) * 4)
+    hd_err = compare_pass(run_hd(hd[0]), asw_cuda._asw_pass_plain(
+        hd[0], H=720, W=1280, **pkw), pkw["min_disp"], "main path 1280x720")
     del hd
     b8 = planes_for(288, 384, 8, 6)
     b8_ms, _ = cuda_ms(lambda p: asw_cuda._asw_pass(p, H=288, W=384, **pkw),
                        b8)
     del b8
     print(f"phase 6b kernel 1280x720: {hd_ms:.3f} ms "
-          f"({rate(720, 1280, 1, hd_ms):.1f} Mpix*disp/s); bounds "
+          f"({rate(720, 1280, 1, hd_ms):.1f} Mpix*disp/s; L1 path "
+          f"{hd_l1_ms:.3f} ms), vs plain max abs err {hd_err[0]:.3g} rel "
+          f"{hd_err[1]:.3g} map mismatch {hd_err[2]:.4%}; bounds "
           f"{bound_ms:.4f} ms at 384x288, {hd_bound[0]:.4f} ms at 1280x720 "
           f"({bound_by}, {hd_bound[1]}); kernel 384x288 "
           f"B=8: {b8_ms:.3f} ms ({b8_ms / 8:.3f} ms/frame, "

@@ -44,8 +44,11 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "asw_kernel": {
         # planes, prox, cost, dispL, dispR, csub,
-        # B, H, W, Hp, Wp, x0, win, step, min_disp, D, inv_gc, device, stream
-        "asw_pass": ([_P] * 6 + [_I] * 10 + [_F, _I, _P], _I),
+        # B, H, W, Hp, Wp, x0, win, step, min_disp, D, inv_gc,
+        # chunk, jg, smem, device, stream
+        "asw_pass": ([_P] * 6 + [_I] * 10 + [_F] + [_I] * 4 + [_P], _I),
+        # chunk, smem, device, info (int[3])
+        "asw_occupancy": ([_I, _I, _I, _P], _I),
         "asw_error_string": ([_I], ctypes.c_char_p),
     },
     "sgm_kernel": {

@@ -13,8 +13,10 @@ Pipeline, per frame stack:
    padded with zeros, wide enough that every window and candidate read of
    the kernel is in bounds.
 2. :func:`_asw_pass`: the kernel wrapper. A CUDA tensor goes to the
-   kernel, a CPU tensor to the plain twin :func:`_asw_pass_plain`; any
-   other device raises. It returns the masked cost volume, the left map,
+   kernel, launched as :func:`_plan` lays it out (the shared-memory tile
+   kernel, or the L1 kernel for a window too wide for any tile); a CPU
+   tensor goes to the plain twin :func:`_asw_pass_plain`; any other device
+   raises. It returns the masked cost volume, the left map,
    the right map derived from the same volume (cost_R(x, d) =
    cost_L(x + d, d)) and the sub-pixel neighbourhood of the winner.
 3. :func:`_finish`: empty candidate range, left-right check, occlusion
@@ -38,6 +40,88 @@ LAB_SENTINEL = 1.0e6  # exp(-sentinel/gammaC) underflows to exactly 0.0
 # Kernel launches made by _asw_pass (CPU calls of the plain twin do not
 # count): lets a caller prove that a run went through the kernel.
 launches = 0
+
+# The cost kernel's output tile (one thread a pixel) and the disparities a
+# tile block keeps in registers: the kernel is compiled for these counts
+# (csrc/asw_kernel.cu: kTW, kTH, asw_cost_tile_kernel<ND>).
+TILE_W, TILE_H = 32, 8
+CHUNKS = (4, 8, 12)
+# Dynamic shared memory a tile block may take so that 3, 2 or 1 blocks
+# fit one H100 SM: 228 KB an SM, 1 KB of it reserved by each block, and
+# 227 KB (232,448 bytes) at most a block. Tried in this order.
+SMEM_BUDGETS = (76_800, 115_712, 232_448)
+GRID_YZ_MAX = 65_535
+GRID_X_MAX = 2**31 - 1
+
+
+def _plan(win_size, step, D, B, H, W, budgets=SMEM_BUDGETS):
+    """Launch plan of the cost kernel for one ``_asw_pass``.
+
+    Returns a dict: ``path`` "tile" (shared-memory tile kernel) or "l1"
+    (the kernel that reads device memory through L1, for a window too
+    wide for any tile), ``chunk`` (disparities a block: 4, 8 or 12 on the
+    tile path, the grid's last chunk padded with disparities that are
+    never written; 16 a walk on the L1 path), ``dcp`` (floats a tad row of
+    one window pixel takes: 4, or 12 = 4 x an odd number, so 16-byte
+    loads of a quarter-warp hit distinct banks), ``jg`` (window columns
+    whose e2 one shared-memory group holds), ``smem`` (dynamic shared
+    memory bytes a block, 0 on the L1 path) and ``grid``.
+
+    The first budget of ``budgets`` that a tile fits wins, with the
+    smallest chunk that holds D (at most 12) first, then a chunk of 4;
+    ``jg`` fills the rest of the budget, evened out over the lattice's
+    columns. Raises ValueError when the grid exceeds CUDA's limits.
+    """
+    pad = win_size // 2
+    nl = 2 * (pad // step) + 1
+    cw = TILE_W + 2 * pad
+    plan = None
+    for budget in budgets:
+        fit = next(c for c in CHUNKS if c >= min(D, CHUNKS[-1]))
+        for chunk in dict.fromkeys((fit, CHUNKS[0])):
+            dcp = 4 if chunk <= 4 else 12
+            sw = TILE_W + chunk - 1
+            # tad, Lab1 and Lab2 rings of TILE_H rows; Lab2 at the
+            # centres; the BGR1 and BGR2 rows being staged; prox of one
+            # window row
+            fixed = (TILE_H * (cw * dcp + 3 * cw + 3 * (sw + 2 * pad))
+                     + 3 * TILE_H * sw + 3 * cw + 3 * (cw + chunk - 1) + nl)
+            per_j = TILE_H * sw  # e2 of one window column
+            jg = min((budget // 4 - fixed) // per_j, nl)
+            if jg < 1:
+                continue
+            jg = -(-nl // -(-nl // jg))
+            plan = dict(path="tile", chunk=chunk, dcp=dcp, jg=jg,
+                        smem=4 * (fixed + jg * per_j),
+                        grid=(-(-W // TILE_W), -(-H // TILE_H),
+                              B * -(-D // chunk)))
+            break
+        if plan is not None:
+            break
+    if plan is None:
+        plan = dict(path="l1", chunk=16, dcp=0, jg=0, smem=0,
+                    grid=(-(-W // TILE_W), -(-H // TILE_H), B))
+    gx, gy, gz = plan["grid"]
+    if gx > GRID_X_MAX or gy > GRID_YZ_MAX or gz > GRID_YZ_MAX:
+        raise ValueError(f"ASW kernel grid {plan['grid']} exceeds CUDA's "
+                         f"limits (B={B}, D={D}, {H}x{W})")
+    return plan
+
+
+def occupancy(plan, device=None):
+    """(registers a thread, spill bytes a thread, blocks resident per SM)
+    of the cost kernel that ``plan`` launches, from the CUDA runtime."""
+    import ctypes
+    dev = torch.device("cuda") if device is None else torch.device(device)
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    info = (ctypes.c_int * 3)()
+    lib = _build.load_library("asw_kernel")
+    err = lib.asw_occupancy(plan["chunk"], plan["smem"], idx,
+                             ctypes.cast(info, ctypes.c_void_p))
+    if err != 0:
+        raise RuntimeError("ASW occupancy query failed: "
+                           + lib.asw_error_string(err).decode())
+    return tuple(info)
 
 
 def _pads(win_size, min_disp, max_disp):
@@ -94,7 +178,7 @@ def _check_planes(planes, want, win_size, min_disp, max_disp, step):
 
 
 def _asw_pass(planes, *, H, W, win_size, min_disp, max_disp, gamma_c,
-              gamma_p, step=1, consistent=True, subpixel=False):
+              gamma_p, step=1, consistent=True, subpixel=False, plan=None):
     """Matching pass over a frame stack of planes (B, 12, Hp, Wp).
 
     Returns ``(cost, dispL, dispR, csub)``: the masked cost volume
@@ -104,7 +188,8 @@ def _asw_pass(planes, *, H, W, win_size, min_disp, max_disp, gamma_c,
     (B, 3, H, W) float32 [c(best-1), c(best), c(best+1)], 0 where the
     neighbour does not exist (None unless ``subpixel``).
 
-    A CUDA tensor launches the kernel; a CPU tensor runs
+    A CUDA tensor launches the kernel as ``plan`` lays it out (default
+    :func:`_plan` of this call's shapes); a CPU tensor runs
     :func:`_asw_pass_plain`; any other device raises.
     """
     global launches
@@ -122,7 +207,8 @@ def _asw_pass(planes, *, H, W, win_size, min_disp, max_disp, gamma_c,
     dev = planes.device
     B, _, Hp, Wp = planes.shape
     D = max_disp - min_disp + 1
-    _, left, _ = _pads(win_size, min_disp, max_disp)
+    if plan is None:
+        plan = _plan(win_size, step, D, B, H, W)
     prox = _prox(win_size, gamma_p, dev)
     cost = torch.empty((B, D, H, W), dtype=torch.float32, device=dev)
     dispL = torch.empty((B, H, W), dtype=torch.int32, device=dev)
@@ -138,7 +224,8 @@ def _asw_pass(planes, *, H, W, win_size, min_disp, max_disp, gamma_c,
         None if dispR is None else dispR.data_ptr(),
         None if csub is None else csub.data_ptr(),
         B, H, W, Hp, Wp, left, win_size, step, min_disp, D,
-        1.0 / float(gamma_c), dev.index,
+        1.0 / float(gamma_c), plan["chunk"], plan["jg"], plan["smem"],
+        dev.index,
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError("ASW kernel launch failed: "
