@@ -6,19 +6,24 @@
 Builds the kernels of ``simplestereo_tpu_torch/csrc/`` (one nvcc per
 source, all started together) and drives the port's main paths:
 
-- ASW: checks the ASW kernel against its plain PyTorch twin on the card,
-  drives ``StereoASW(35, 14, 4, 15, 17.5, consistent=True).compute`` (the
+- ASW: checks the ASW kernel against its plain PyTorch twin on the card
+  (and a stack too deep for one launch's grid against the same stack in
+  pieces), drives ``StereoASW(35, 14, 4, 15, 17.5, consistent=True).compute`` (the
   Tsukuba-size headline configuration) on synthetic 384x288 and 1280x720
   pairs with a known shift of 5, and times kernel and twin;
-- SGM: checks the path-aggregation kernel against its twin on option cases
-  (S bit-equal), drives ``StereoSGM(device="cuda").compute`` and
+- SGM: checks the path-aggregation kernels against their twin on option
+  cases and random volumes, in every mode of the launch plan (S
+  bit-equal; 70,000 frames too), drives ``StereoSGM(device="cuda").compute`` and
   ``computeBatch`` in the Tsukuba-size census configuration at 384x288 and
   the full-width BT row at 1280x720 with D = 128 on the same synthetic
-  pairs, and times kernel, twin and ``compute()``;
+  pairs, and times kernel (each mode, and the first version), twin and
+  ``compute()``;
 - GSW: checks the support-weight kernel against its twin on option cases
   (SD, mirrored consistent stack, step, D > 16, negative min_disp, win 1,
   D = 1, normalize, an MI volume, B = 2, a window too large for shared
-  memory), drives ``StereoGSW(23, 14, 4, 12.5, 20,
+  memory, every compiled chunk), each on the shared-memory tile path and
+  the L1 path, and a 512-frame stack against the same stack in pieces;
+  prints the tile kernel's occupancy; drives ``StereoGSW(23, 14, 4, 12.5, 20,
   consistent=True).compute`` and ``computeBatch`` (the tuned Tsukuba-size
   point) at 384x288 and 1280x720, drives the MI cost on a gamma-0.5 pair,
   times kernel, twin and ``compute()``, and profiles ``compute()`` (device
@@ -90,6 +95,16 @@ SGM_CASES = [
     dict(numDisparities=11, costMethod="bt+census", censusWindow=7,
          disp12MaxDiff=1, B=2),
 ]
+# Cases of the SGM kernels on random integer volumes (B, H, W, D, paths),
+# each on every plan mode that takes it: one disparity a lane (D 1), two
+# lines a warp (D 16), two and eight disparities a lane (D 40, 130; 130 is
+# not a multiple of 4: scalar loads), four with 16-byte loads (D 100), B 2, the first
+# version for D > 256, and a stack of 70,000 frames (past grid y's 65,535).
+SGM_KERNEL_CASES = [
+    (1, 45, 150, 1, 8), (1, 45, 150, 16, 8), (2, 45, 150, 16, 4),
+    (1, 45, 150, 40, 8), (1, 37, 101, 100, 8), (1, 45, 150, 130, 8),
+    (2, 45, 150, 300, 8), (70_000, 2, 3, 1, 8),
+]
 # Kernel vs plain twin: the same inf pattern; rtol on finite costs (the
 # kernel multiplies two expf where the twin takes one exp of the sum, and
 # sums in another order); argmin maps may flip on near-ties.
@@ -133,7 +148,18 @@ GSW_CASES = [
     dict(win_size=7, min_disp=1, max_disp=6, consistent=True, mi=True),
     dict(win_size=7, min_disp=4, max_disp=14, consistent=True, B=2),
     dict(win_size=111, min_disp=1, max_disp=6, consistent=True),
+    dict(win_size=7, min_disp=0, max_disp=15, consistent=True),
+    dict(win_size=9, min_disp=2, max_disp=5, consistent=True, normalize=True,
+         f_max=500.0),
+    dict(win_size=5, min_disp=2, max_disp=14, consistent=True, mi=True),
 ]
+# The grid-limit cases: a stack whose grid would pass CUDA's 65,535 blocks
+# (GSW: 256 consistent frames = 512 on the stack, D = 128, so the L1
+# path's volume launch would need 65,536 blocks in z; ASW: 6,000 frames x
+# 11 chunks of 12 disparities = 66,000), at 8x140 and win 5. Each is held
+# bit-equal to the same stack run in two pieces.
+GSW_DEEP = dict(B=256, h=8, w=140, win_size=5, min_disp=0, max_disp=127)
+ASW_DEEP = dict(B=6000, h=8, w=140, win_size=5, min_disp=0, max_disp=127)
 # Option cases of the kernel, at a small ragged size (45x150, not a
 # multiple of the (32, 8) tile, unless the case says otherwise): lattice
 # step 2 and 3, D over one chunk of 12 disparities (18, 20, 41),
@@ -211,6 +237,50 @@ def compare_pass(k, p, min_disp, where):
         rel = ((ks[f] - ps[f]).abs() / ps[f].abs().clamp(min=1e-30)).max()
         check(rel.item() <= RTOL, f"{where}: csub rel err {rel.item():.3g}")
     return abs_err, rel_err, mism
+
+
+def kernel_name(symbol):
+    """'name<template args>' of a mangled kernel symbol: the first
+    length-prefixed name that is not nvcc's anonymous namespace, and the
+    integer and bool template arguments after it."""
+    pos = 3 if symbol.startswith("_ZN") else 2
+    while True:
+        m = re.match(r"\d+", symbol[pos:])
+        if m is None:
+            return symbol
+        n = int(m.group(0))
+        name = symbol[pos + len(m.group(0)):pos + len(m.group(0)) + n]
+        pos += len(m.group(0)) + n
+        if not name.startswith("_GLOBAL__N"):
+            break
+    args = re.match(r"I((?:L[ib]\d+E)+)E", symbol[pos:])
+    if args is None:
+        return name
+    return f"{name}<{','.join(re.findall(r'L[ib](\d+)E', args.group(1)))}>"
+
+
+def ptxas_summary(log):
+    """'kernel<template args> registers/spill stores' for each kernel of an
+    nvcc -Xptxas -v log."""
+    out, name, spill = [], None, "?"
+    for ln in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", ln)
+        if m:
+            name = kernel_name(m.group(1))
+        m = re.search(r"(\d+) bytes spill stores", ln)
+        if m:
+            spill = m.group(1)
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and name is not None:
+            out.append(f"{name} {m.group(1)}/{spill}")
+            name, spill = None, "?"
+    return ", ".join(out)
+
+
+def short(kernel):
+    """A device event's name cut to its function."""
+    return re.sub(r"^void |\(anonymous namespace\)::|at::native::|\(.*$",
+                  "", kernel)[:36].strip()
 
 
 def bound(flops, nbytes):
@@ -319,6 +389,10 @@ def sgm_phases(dev, card):
                                        "uniqueness", "disp12_max_diff",
                                        "subpixel"))
 
+    def plan_of(C, paths, mode):
+        B = C.shape[0] if C.dim() == 4 else 1
+        return sgm_cuda._plan(B, *C.shape[-3:], paths, mode=mode)
+
     # ---- phase 7: kernel vs twin, every option case ---------------------
     for case in SGM_CASES:
         kw = dict(case)
@@ -329,20 +403,46 @@ def sgm_phases(dev, card):
         C = volume(m, l, np.roll(l, -SHIFT, axis=2))
         if B == 1:
             C = C[0]  # the (H, W, D) form of the wrapper
-        n0 = sgm_cuda.launches
-        k = sgm_cuda.aggregate(C, m.P1, m.P2, m.paths)
-        torch.cuda.synchronize()
-        check(sgm_cuda.launches == n0 + 1, f"SGM case {case}: launch not "
-              "counted")
         p = sgm_cuda._aggregate(C, float(m.P1), float(m.P2), m.paths)
-        check(torch.equal(k, p), f"SGM case {case}: S differs from the "
-              f"twin, max abs err {(k - p).abs().max().item():.3g}")
-        check(torch.equal(post(m, k), post(m, p)),
-              f"SGM case {case}: final maps differ")
+        for mode in sgm_cuda.MODES:
+            n0 = sgm_cuda.launches
+            k = sgm_cuda.aggregate(C, m.P1, m.P2, m.paths, plan=plan_of(
+                C, m.paths, mode))
+            torch.cuda.synchronize()
+            check(sgm_cuda.launches == n0 + 1, f"SGM case {case} {mode}: "
+                  "launch not counted")
+            check(torch.equal(k, p), f"SGM case {case} {mode}: S differs "
+                  f"from the twin, max abs err "
+                  f"{(k - p).abs().max().item():.3g}")
+            check(torch.equal(post(m, k), post(m, p)),
+                  f"SGM case {case} {mode}: final maps differ")
+    rng = np.random.default_rng(SEED + 5)
+    ran = set()
+    for B, h, w, D, paths in SGM_KERNEL_CASES:
+        C = torch.tensor(rng.integers(0, 200, (B, h, w, D)).astype(
+            np.float32), device=dev)
+        p = sgm_cuda._aggregate(C, 12.0, 40.0, paths)
+        for mode in sgm_cuda.MODES if D <= sgm_cuda.LINES_D_MAX else (
+                "generic",):
+            plan = plan_of(C, paths, mode)
+            k = sgm_cuda.aggregate(C, 12.0, 40.0, paths, plan=plan)
+            torch.cuda.synchronize()
+            check(torch.equal(k, p), f"SGM kernel case {(B, h, w, D)} "
+                  f"{mode}: S differs from the twin, max abs err "
+                  f"{(k - p).abs().max().item():.3g}")
+            ran.add((mode, plan["npl"], plan["vec"], plan["frames"] < B))
+        del C, p
+    check({r[0] for r in ran} == set(sgm_cuda.MODES)
+          and {r[1] for r in ran} == {0, *sgm_cuda.NPL}
+          and any(r[2] for r in ran) and any(r[3] for r in ran),
+          f"phase 7 ran {sorted(ran)}")
     print(f"phase 7 SGM kernel vs twin on {len(SGM_CASES)} option cases at "
           f"45x150 (paths 4/8, D 3/11/16/40, min_disp -4, blockSize 1/3/5, "
-          f"bt/census 7/bt+census, LR 1, uniqueness 10, B 2): S "
-          f"torch.equal, maps equal, launch count +1 per call")
+          f"bt/census 7/bt+census, LR 1, uniqueness 10, B 2) and "
+          f"{len(SGM_KERNEL_CASES)} volume cases (D 1/16 packed/40/100/130/"
+          f"300, B 2, 70,000 frames in two launches), each in every mode "
+          f"(sequential, concurrent, generic): S torch.equal, maps equal, "
+          f"launch count +1 per call | {card}")
 
     # ---- phases 8-9: the main path --------------------------------------
     launches_main = None
@@ -403,6 +503,7 @@ def sgm_phases(dev, card):
         run_k = lambda C: sgm_cuda.aggregate(C, m.P1, m.P2, m.paths)
         run_p = lambda C: sgm_cuda._aggregate(C, float(m.P1), float(m.P2),
                                               m.paths)
+        plan = sgm_cuda._plan(1, h, w, D, m.paths)
         k_ms, _ = cuda_ms(run_k, vols)
         p_ms, _ = cuda_ms(run_p, vols[:3])
         k, p = run_k(vols[0]), run_p(vols[0])
@@ -410,15 +511,37 @@ def sgm_phases(dev, card):
         check(torch.equal(k, p), f"SGM {w}x{h} D={D}: kernel S differs from "
               f"the twin at the main-path shape, max abs err {err:.3g}")
         del k, p
+        # Each mode, in turns around the plan's (first version = PR 2's
+        # kernel, the generic path).
+        modes = {}
+        for mode in ("generic", "sequential", "concurrent", "sequential",
+                     "generic"):
+            run = lambda C, mode=mode: sgm_cuda.aggregate(  # noqa: E731
+                C, m.P1, m.P2, m.paths, plan=sgm_cuda._plan(
+                    1, h, w, D, m.paths, mode=mode))
+            modes[mode] = min(modes.get(mode, np.inf), cuda_ms(run, vols)[0])
+            torch.cuda.empty_cache()
         # C read once, S written once; per (path, pixel, d) the
         # recurrence's 7 min/add operations and 1 add into S.
         bnd = bound(8 * 8 * h * w * D, 2 * h * w * D * 4)
+        # What the plan's design must move: sequential, C 8 times and S
+        # read 7 and written 8 times; concurrent, C 8, 8 L buffers written
+        # and read, S written once.
+        vols_moved = 23 if plan["mode"] == "sequential" else 25
+        floor_ms = vols_moved * h * w * D * 4 / PEAK_BYTES * 1e3
         times[(h, w)] = (k_ms, p_ms, err, bnd)
         print(f"phase 10 SGM {w}x{h} D={D}: kernel {k_ms:.3f} ms "
-              f"({rate(h, w, D, 1, k_ms):.1f} Mpix*disp/s), twin "
-              f"{p_ms:.1f} ms ({rate(h, w, D, 1, p_ms):.2f} Mpix*disp/s), "
-              f"bound {bnd[0]:.4f} ms ({bnd[1]}), kernel S torch.equal to "
-              f"the twin's; compute() {e2e[(h, w)]:.2f} ms | {card}")
+              f"({rate(h, w, D, 1, k_ms):.1f} Mpix*disp/s; plan "
+              f"{plan['mode']}, {plan['group']} lanes a line, "
+              f"{plan['npl']} disparities a lane; sequential "
+              f"{modes['sequential']:.3f}, concurrent "
+              f"{modes['concurrent']:.3f}, first version "
+              f"{modes['generic']:.3f} ms), twin {p_ms:.1f} ms "
+              f"({rate(h, w, D, 1, p_ms):.2f} Mpix*disp/s), bound "
+              f"{bnd[0]:.4f} ms ({bnd[1]}), the design's traffic floor "
+              f"{floor_ms:.4f} ms ({vols_moved} volumes), kernel S "
+              f"torch.equal to the twin's; compute() {e2e[(h, w)]:.2f} ms | "
+              f"{card}")
         del vols
         torch.cuda.empty_cache()
 
@@ -426,6 +549,10 @@ def sgm_phases(dev, card):
     vols = volumes(m, 288, 384, 8, 6)
     b8_ms, _ = cuda_ms(lambda C: sgm_cuda.aggregate(C, m.P1, m.P2, m.paths),
                        vols)
+    b8_seq, _ = cuda_ms(lambda C: sgm_cuda.aggregate(
+        C, m.P1, m.P2, m.paths, plan=sgm_cuda._plan(
+            8, 288, 384, 16, m.paths, mode="sequential")), vols)
+    b8_mode = sgm_cuda._plan(8, 288, 384, 16, m.paths)["mode"]
     del vols
     left, right = pair(288, 384)
     stacks = [(np.stack([np.roll(left, i * 8 + j, axis=0) for j in range(8)]),
@@ -434,11 +561,29 @@ def sgm_phases(dev, card):
     cb_ms, n_cb = host_ms(m.computeBatch, stacks)
     one_ms, n_one = host_ms(m.compute, [(ls[0], rs[0]) for ls, rs in stacks])
     print(f"phase 10 SGM sgm_batch8 384x288 D=16 bt B=8: kernel "
-          f"{b8_ms:.3f} ms ({b8_ms / 8:.3f} ms/frame, "
+          f"{b8_ms:.3f} ms (plan {b8_mode}; sequential {b8_seq:.3f} ms; "
+          f"{b8_ms / 8:.3f} ms/frame, "
           f"{rate(288, 384, 16, 8, b8_ms):.1f} Mpix*disp/s); computeBatch() "
           f"{cb_ms:.2f} ms ({cb_ms / 8:.3f} ms/frame end to end, host "
           f"clock, n={n_cb}); compute() of one frame {one_ms:.2f} ms "
           f"(n={n_one}) | {card}")
+
+    # Where compute()'s time goes: device time (kernels and copies) against
+    # the wall of the same profiled calls, both main configurations.
+    parts = []
+    for (h, w), cfg in SGM_MAIN:
+        m = StereoSGM(device="cuda", **cfg)
+        left, right = pair(h, w)
+        dev_ms, ev, wall, heavy = profile_ms(m.compute, [
+            (np.roll(left, i, axis=0), np.roll(right, i, axis=0))
+            for i in range(5)])
+        parts.append(
+            f"{w}x{h}: device {dev_ms:.3f} ms of {wall:.3f} ms wall per frame "
+            f"(busy {dev_ms / wall:.2f}), {ev:.0f} device events; top "
+            + ", ".join(f"{short(k)} {v:.3f}" for k, v in heavy))
+        torch.cuda.empty_cache()
+    print("phase 10c SGM compute() profile (torch.profiler, 4 calls each) | "
+          + " | ".join(parts) + f" | {card}")
 
     k_ms, p_ms, err, (bound_ms, bound_by) = times[SGM_MAIN[0][0]]
     return {"name": "sgm_aggregate", "route": "cuda",
@@ -479,19 +624,24 @@ def gsw_phases(dev, card):
                                   gsw_cuda.BGR_SENTINEL),
             gsw_cuda._pack_planes(vol, win, 0.0)], dim=1)
 
-    def versus(planes, pkw, where):
-        """One kernel call against the twin on the same planes."""
+    def versus(planes, pkw, where, plain=None):
+        """One kernel call against the twin (``plain``: its outputs, if
+        computed already) on the same planes."""
         n0 = gsw_cuda.launches
         kd, kc = gsw_cuda._gsw_pass(planes, return_cost=True, **pkw)
         torch.cuda.synchronize()
         check(gsw_cuda.launches == n0 + 1, f"{where}: launch not counted")
-        pd, pc = gsw_cuda._gsw_pass_plain(planes, return_cost=True, **pkw)
+        pkw = {k: v for k, v in pkw.items() if k != "plan"}
+        pd, pc = plain or gsw_cuda._gsw_pass_plain(planes, return_cost=True,
+                                                    **pkw)
         errs = compare_pass((kc, kd, None, None), (pc, pd, None, None),
                             pkw["min_disp"], where)
         return kd, pd, errs
 
     # ---- phase 11: kernel vs twin, every option case --------------------
+    from simplestereo_tpu_torch import _build
     worst = [0.0, 0.0, 0.0]
+    ran = set()
     for case in GSW_CASES:
         kw = dict(case)
         B = kw.pop("B", 1)
@@ -509,18 +659,77 @@ def gsw_phases(dev, card):
         else:
             planes = sd_planes(l, r, kw["win_size"], cons)
             pkw = dict(H=h, W=w, gamma=10.0, f_max=f_max, **kw)
-        kd, pd, errs = versus(planes, pkw, f"GSW case {case}")
-        fk = gsw_cuda._finish(kd, B, w, kw["min_disp"], cons)
+        D = kw["max_disp"] - kw["min_disp"] + 1
+        pd, pc = gsw_cuda._gsw_pass_plain(planes, return_cost=True, **pkw)
         fp = gsw_cuda._finish(pd, B, w, kw["min_disp"], cons)
-        m = (fk != fp).double().mean().item()
-        check(m <= MISMATCH, f"GSW case {case}: final map mismatch {m:.2%}")
-        worst = [max(a, b) for a, b in zip(worst, errs)]
+        for budgets in ((gsw_cuda.SMEM_MAX,), ()):
+            plan = gsw_cuda._plan(kw["win_size"], kw.get("step", 1), D,
+                                  planes.shape[0], h, w, ext_vol=mi,
+                                  budgets=budgets)
+            where = f"GSW case {case} {plan['path']} path"
+            kd, _, errs = versus(planes, dict(pkw, plan=plan), where,
+                                 plain=(pd, pc))
+            fk = gsw_cuda._finish(kd, B, w, kw["min_disp"], cons)
+            m = (fk != fp).double().mean().item()
+            check(m <= MISMATCH, f"{where}: final map mismatch {m:.2%}")
+            worst = [max(a, b) for a, b in zip(worst, errs)]
+            ran.add((plan["path"], plan["nd"], mi))
+    check({r[0] for r in ran} == {"tile", "l1"} and {
+        r[1] for r in ran if r[0] == "tile"} == set(gsw_cuda.CHUNKS) and {
+        (r[0], r[2]) for r in ran} == {("tile", True), ("tile", False),
+                                       ("l1", True), ("l1", False)},
+          f"phase 11 ran {sorted(ran)}")
+
+    # The grid-limit case, on both paths: one call of the whole stack
+    # against the same stack in two calls.
+    deep = dict(GSW_DEEP)
+    B, h, w = deep.pop("B"), deep.pop("h"), deep.pop("w")
+    rng = np.random.default_rng(SEED + 6)
+    l = rng.integers(0, 256, (B, h, w, 3), np.uint8)
+    planes = sd_planes(l, np.roll(l, -SHIFT, axis=2), deep["win_size"])
+    S = planes.shape[0]
+    D = deep["max_disp"] - deep["min_disp"] + 1
+    pkw = dict(H=h, W=w, gamma=10.0, f_max=20.0, return_cost=True, **deep)
+    deep_pieces = []
+    for budgets in ((gsw_cuda.SMEM_MAX,), ()):
+        plan = gsw_cuda._plan(deep["win_size"], 1, D, S, h, w,
+                              budgets=budgets)
+        n0 = gsw_cuda.launches
+        whole = gsw_cuda._gsw_pass(planes, plan=plan, **pkw)
+        torch.cuda.synchronize()
+        check(gsw_cuda.launches == n0 + 1, "GSW deep stack: launch not "
+              "counted")
+        half = [gsw_cuda._gsw_pass(planes[a:b].contiguous(), plan=plan, **pkw)
+                for a, b in ((0, S // 2), (S // 2, S))]
+        for i, name in enumerate(("map", "cost")):
+            check(torch.equal(whole[i], torch.cat([p[i] for p in half])),
+                  f"GSW deep stack {plan['path']} path: {name} differs from "
+                  f"the stack in pieces")
+        deep_pieces.append(f"{plan['path']} {len(_build.frame_pieces(S, plan['frames']))}")
+        del whole, half
+    del planes
+    torch.cuda.empty_cache()
+
+    # The main plan's occupancy.
+    mplan = gsw_cuda._plan(GSW_MAIN["winSize"], 1, GSW_MAIN["maxDisparity"]
+                           - GSW_MAIN["minDisparity"] + 1, 2, 288, 384)
+    regs, spill, blocks = gsw_cuda.occupancy(mplan, device=dev)
+    check(mplan["path"] == "tile" and spill == 0 and blocks >= 1,
+          f"K3 main plan {mplan}: {regs} registers, {spill} B spilled, "
+          f"{blocks} blocks an SM")
     print(f"phase 11 GSW kernel vs twin on {len(GSW_CASES)} option cases at "
           f"45x150 (SD, consistent stack, step 2, D 21, min_disp -3, win 1, "
-          f"D 1, normalize, MI ext_vol, B 2, win 111): ok | max abs err "
-          f"{worst[0]:.3g}, max rel err {worst[1]:.3g} (rtol {RTOL}), worst "
-          f"map mismatch {worst[2]:.4%} (limit {MISMATCH:.0%}), launch count "
-          f"+1 per call")
+          f"D 1, normalize, MI ext_vol, B 2, win 111, D 16, D 4 normalize, "
+          f"MI D 13), each on the plan's path and the L1 path (tile chunks "
+          f"{sorted({r[1] for r in ran if r[0] == 'tile'})}): ok | max abs "
+          f"err {worst[0]:.3g}, max rel err {worst[1]:.3g} (rtol {RTOL}), "
+          f"worst map mismatch {worst[2]:.4%} (limit {MISMATCH:.0%}), launch "
+          f"count +1 per call | {GSW_DEEP['B']} consistent frames ({S} on "
+          f"the stack) of {w}x{h}, D={D}: one call bit-equal to two "
+          f"(launches a call: {', '.join(deep_pieces)}) | occupancy: main "
+          f"plan chunk {mplan['nd']}, {mplan['smem']} B dynamic shared "
+          f"memory a block, {regs} registers, {spill} B spilled, {blocks} "
+          f"blocks = {blocks * 8} warps resident an SM | {card}")
 
     # ---- phase 12: the main path ----------------------------------------
     m = StereoGSW(device="cuda", **GSW_MAIN)
@@ -662,10 +871,6 @@ def gsw_phases(dev, card):
 
     # Where compute()'s time goes: device time (kernels and copies) against
     # the wall of the same profiled calls, for SD and MI at 384x288.
-    def short(kernel):
-        return re.sub(r"^void |\(anonymous namespace\)::|at::native::|\(.*$",
-                      "", kernel)[:36].strip()
-
     parts = []
     for name, matcher, tgt in (("SD", m, right), ("MI", mm_, g05)):
         dev_ms, ev, wall, heavy = profile_ms(matcher.compute, [
@@ -1081,11 +1286,10 @@ def main():
     for name in names:
         _build.load_library(name)
     build_s = time.perf_counter() - t0
-    ptxas = [f"{name}: {ln.strip()}" for name in names
-             for ln in _build.compile_log(name).splitlines()
-             if "registers" in ln or "spill" in ln]
+    ptxas = [ptxas_summary(_build.compile_log(name)) for name in names]
     print(f"phase 2 build: {' + '.join(names)} in parallel {build_s:.2f} "
-          f"s | " + " | ".join(ptxas))
+          f"s | registers/spill bytes a thread: " + " | ".join(ptxas)
+          + f" | {card}")
 
     # ---- phase 3: kernel vs plain twin, every option case --------------
     worst = [0.0, 0.0, 0.0]
@@ -1123,12 +1327,41 @@ def main():
             worst = [max(a, b) for a, b in zip(worst, errs)]
             paths.add(plan["path"])
     check(paths == {"tile", "l1"}, f"phase 3 ran paths {paths}")
+
+    # The grid-limit case: one call of the whole stack against the same
+    # stack in two calls (the twin would take too long at this size).
+    deep = dict(ASW_DEEP)
+    B, h, w = deep.pop("B"), deep.pop("h"), deep.pop("w")
+    l = np.random.default_rng(SEED + 7).integers(0, 256, (B, h, w, 3),
+                                                 np.uint8)
+    planes = asw_cuda._build_planes(
+        torch.tensor(l, device=dev),
+        torch.tensor(np.roll(l, -SHIFT, axis=2), device=dev),
+        deep["win_size"], deep["min_disp"], deep["max_disp"])
+    D = deep["max_disp"] - deep["min_disp"] + 1
+    plan = asw_cuda._plan(deep["win_size"], 1, D, B, h, w)
+    pkw = dict(H=h, W=w, gamma_c=5.0, gamma_p=17.5, consistent=True, **deep)
+    n0 = asw_cuda.launches
+    whole = asw_cuda._asw_pass(planes, **pkw)
+    torch.cuda.synchronize()
+    check(asw_cuda.launches == n0 + 1, "ASW deep stack: launch not counted")
+    for a, b in ((0, B // 2), (B // 2, B)):
+        part = asw_cuda._asw_pass(planes[a:b].contiguous(), **pkw)
+        for name, x, y in zip(("cost", "dispL", "dispR"), whole, part):
+            check(torch.equal(x[a:b], y), f"ASW deep stack: {name} of frames "
+                  f"{a}..{b} differs from the stack in pieces")
+        del part
+    del planes, whole
+    torch.cuda.empty_cache()
     print(f"phase 3 kernel vs plain on {len(CASES)} option cases (45x150 "
           f"unless stated; step 2/3, D 18/20/41, min_disp -3, subpixel, "
           f"B 2, win 111, B 2 at 37x101), each on the tile and the L1 path: "
           f"ok | max abs err {worst[0]:.3g}, max rel err {worst[1]:.3g} "
           f"(rtol {RTOL}), worst map mismatch {worst[2]:.4%} "
-          f"(limit {MISMATCH:.0%}), launch count +1 per call")
+          f"(limit {MISMATCH:.0%}), launch count +1 per call | {B} frames "
+          f"of {w}x{h}, D={D} (frames x chunks {B * -(-D // plan['chunk'])} "
+          f"> 65,535): one call in {len(_build.frame_pieces(B, plan['frames']))} "
+          f"launches bit-equal to two calls | {card}")
 
     # ---- phases 4-5: the main path -------------------------------------
     m = StereoASW(device="cuda", **MAIN)
@@ -1166,7 +1399,7 @@ def main():
         print(f"phase {phase} main path {w}x{h}: {frac:.2%} of interior = "
               f"{SHIFT}, launches {n}, batch of 8 bit-equal to per-frame, "
               f"compute() median {e2e[(h, w)]:.2f} ms/frame end to end "
-              f"(host clock, n={len(ts)})")
+              f"(host clock, n={len(ts)}) | {card}")
 
     # ---- phase 6: times -----------------------------------------------
     D = MAIN["maxDisparity"] - MAIN["minDisparity"] + 1

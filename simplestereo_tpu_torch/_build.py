@@ -52,15 +52,18 @@ _SIGNATURES = {
         "asw_error_string": ([_I], ctypes.c_char_p),
     },
     "sgm_kernel": {
-        # C, S, B, H, W, D, P1, P2, paths, device, stream
-        "sgm_aggregate": ([_P] * 2 + [_I] * 4 + [_F] * 2 + [_I] * 2 + [_P],
+        # C, S, work, B, H, W, D, P1, P2, paths, mode, npl, group, vec,
+        # device, stream
+        "sgm_aggregate": ([_P] * 3 + [_I] * 4 + [_F] * 2 + [_I] * 6 + [_P],
                           _I),
         "sgm_error_string": ([_I], ctypes.c_char_p),
     },
     "gsw_kernel": {
         # planes, vol, disp, cost, B, C, H, W, Hp, Wp, win, step, min_disp,
-        # D, gamma, f_max, normalize, ext_vol, device, stream
-        "gsw_pass": ([_P] * 4 + [_I] * 10 + [_F] * 2 + [_I] * 3 + [_P], _I),
+        # D, gamma, f_max, normalize, ext_vol, nd, smem, device, stream
+        "gsw_pass": ([_P] * 4 + [_I] * 10 + [_F] * 2 + [_I] * 5 + [_P], _I),
+        # nd, normalize, smem, device, info (int[3])
+        "gsw_occupancy": ([_I] * 4 + [_P], _I),
         "gsw_error_string": ([_I], ctypes.c_char_p),
     },
     "rotate_kernel": {
@@ -69,6 +72,21 @@ _SIGNATURES = {
         "rotate_error_string": ([_I], ctypes.c_char_p),
     },
 }
+
+
+# CUDA's limits on a grid's extents; the matchers' kernels put the frames
+# of a stack on y or z.
+GRID_X_MAX = 2**31 - 1
+GRID_YZ_MAX = 65_535
+
+
+def frame_pieces(B, per_launch):
+    """[(b0, b1), ...]: the frames [0, B) cut, in order, into launches of
+    at most ``per_launch`` frames each. Frames are independent, so the
+    pieces give what one launch of the whole stack would, bit for bit."""
+    if per_launch < 1:
+        raise ValueError(f"per_launch must be >= 1, got {per_launch}")
+    return [(b, min(b + per_launch, B)) for b in range(0, B, per_launch)]
 
 
 def _nvcc():

@@ -50,8 +50,6 @@ CHUNKS = (4, 8, 12)
 # fit one H100 SM: 228 KB an SM, 1 KB of it reserved by each block, and
 # 227 KB (232,448 bytes) at most a block. Tried in this order.
 SMEM_BUDGETS = (76_800, 115_712, 232_448)
-GRID_YZ_MAX = 65_535
-GRID_X_MAX = 2**31 - 1
 
 
 def _plan(win_size, step, D, B, H, W, budgets=SMEM_BUDGETS):
@@ -65,12 +63,15 @@ def _plan(win_size, step, D, B, H, W, budgets=SMEM_BUDGETS):
     one window pixel takes: 4, or 12 = 4 x an odd number, so 16-byte
     loads of a quarter-warp hit distinct banks), ``jg`` (window columns
     whose e2 one shared-memory group holds), ``smem`` (dynamic shared
-    memory bytes a block, 0 on the L1 path) and ``grid``.
+    memory bytes a block, 0 on the L1 path), ``frames`` (frames a launch:
+    grid z holds frames x chunks, at most 65,535; a larger stack runs in
+    pieces) and ``grid`` (of one launch of ``frames`` frames).
 
     The first budget of ``budgets`` that a tile fits wins, with the
     smallest chunk that holds D (at most 12) first, then a chunk of 4;
     ``jg`` fills the rest of the budget, evened out over the lattice's
-    columns. Raises ValueError when the grid exceeds CUDA's limits.
+    columns. Raises ValueError when an image's own rows (or D's chunks)
+    exceed CUDA's grid limits.
     """
     pad = win_size // 2
     nl = 2 * (pad // step) + 1
@@ -91,18 +92,22 @@ def _plan(win_size, step, D, B, H, W, budgets=SMEM_BUDGETS):
             if jg < 1:
                 continue
             jg = -(-nl // -(-nl // jg))
+            nchunks = -(-D // chunk)
+            frames = min(B, max(1, _build.GRID_YZ_MAX // nchunks))
             plan = dict(path="tile", chunk=chunk, dcp=dcp, jg=jg,
-                        smem=4 * (fixed + jg * per_j),
+                        smem=4 * (fixed + jg * per_j), frames=frames,
                         grid=(-(-W // TILE_W), -(-H // TILE_H),
-                              B * -(-D // chunk)))
+                              frames * nchunks))
             break
         if plan is not None:
             break
     if plan is None:
-        plan = dict(path="l1", chunk=16, dcp=0, jg=0, smem=0,
-                    grid=(-(-W // TILE_W), -(-H // TILE_H), B))
+        frames = min(B, _build.GRID_YZ_MAX)
+        plan = dict(path="l1", chunk=16, dcp=0, jg=0, smem=0, frames=frames,
+                    grid=(-(-W // TILE_W), -(-H // TILE_H), frames))
     gx, gy, gz = plan["grid"]
-    if gx > GRID_X_MAX or gy > GRID_YZ_MAX or gz > GRID_YZ_MAX:
+    if (gx > _build.GRID_X_MAX or gy > _build.GRID_YZ_MAX
+            or gz > _build.GRID_YZ_MAX):
         raise ValueError(f"ASW kernel grid {plan['grid']} exceeds CUDA's "
                          f"limits (B={B}, D={D}, {H}x{W})")
     return plan
@@ -189,7 +194,8 @@ def _asw_pass(planes, *, H, W, win_size, min_disp, max_disp, gamma_c,
     neighbour does not exist (None unless ``subpixel``).
 
     A CUDA tensor launches the kernel as ``plan`` lays it out (default
-    :func:`_plan` of this call's shapes); a CPU tensor runs
+    :func:`_plan` of this call's shapes; a stack of more frames than a
+    launch takes runs in pieces, counted as one call); a CPU tensor runs
     :func:`_asw_pass_plain`; any other device raises.
     """
     global launches
@@ -218,18 +224,20 @@ def _asw_pass(planes, *, H, W, win_size, min_disp, max_disp, gamma_c,
             if subpixel else None)
 
     lib = _build.load_library("asw_kernel")
-    err = lib.asw_pass(
-        planes.data_ptr(), prox.data_ptr(), cost.data_ptr(),
-        dispL.data_ptr(),
-        None if dispR is None else dispR.data_ptr(),
-        None if csub is None else csub.data_ptr(),
-        B, H, W, Hp, Wp, left, win_size, step, min_disp, D,
-        1.0 / float(gamma_c), plan["chunk"], plan["jg"], plan["smem"],
-        dev.index,
-        torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError("ASW kernel launch failed: "
-                           + lib.asw_error_string(err).decode())
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    hw = H * W * 4  # bytes of one (H, W) float32 or int32 map
+    for b0, b1 in _build.frame_pieces(B, plan["frames"]):
+        err = lib.asw_pass(
+            planes.data_ptr() + b0 * 12 * Hp * Wp * 4, prox.data_ptr(),
+            cost.data_ptr() + b0 * D * hw, dispL.data_ptr() + b0 * hw,
+            None if dispR is None else dispR.data_ptr() + b0 * hw,
+            None if csub is None else csub.data_ptr() + b0 * 3 * hw,
+            b1 - b0, H, W, Hp, Wp, left, win_size, step, min_disp, D,
+            1.0 / float(gamma_c), plan["chunk"], plan["jg"], plan["smem"],
+            dev.index, stream)
+        if err != 0:
+            raise RuntimeError("ASW kernel launch failed: "
+                               + lib.asw_error_string(err).decode())
     launches += 1
     return cost, dispL, dispR, csub
 

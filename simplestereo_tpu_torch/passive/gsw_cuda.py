@@ -36,11 +36,87 @@ from .gsw import _argmin_disp, _gsw_cost, _mi_volume, _quantize_gray
 
 BGR_SENTINEL = 1.0e6  # exp(-||sentinel - c|| / gamma) underflows to 0.0
 
-# Calls of _gsw_pass that launched the kernel, one per call: a call is a
-# volume + aggregation launch pair, or the aggregation alone with
-# ext_vol. CPU calls of the twin do not count. Lets a caller prove that a
-# run went through the kernel.
+# Calls of _gsw_pass that launched the kernel, one per call: one tile
+# kernel launch (the volume is built inside it), or on the L1 path a
+# volume + aggregation pair (the aggregation alone with ext_vol). CPU calls
+# of the twin do not count. Lets a caller prove that a run went through
+# the kernel.
 launches = 0
+
+# The tile kernel (csrc/gsw_kernel.cu: gsw_tile_kernel<ND>): a block of
+# 32 x 8 threads computes 32 x 32 pixels (four rows a thread), and is
+# compiled for these disparity chunks.
+TILE_W, TILE_H = 32, 32
+CHUNKS = (4, 8, 12, 16)
+CHUNK_L1 = 16  # disparities a walk on the L1 path
+# Dynamic shared memory a block may take: 227 KB (232,448 bytes) on an
+# H100.
+SMEM_MAX = 232_448
+
+
+def _plan(win_size, step, D, B, H, W, ext_vol=False, budgets=(SMEM_MAX,)):
+    """Launch plan of the GSW kernels for one ``_gsw_pass``.
+
+    Returns a dict: ``path`` "tile" (the shared-memory tile kernel, the
+    volume built inside it) or "l1" (a volume launch into device memory
+    and the kernel that reads its windows through L1, for a window whose
+    tile does not fit), ``nd`` (disparities a chunk: 4, 8, 12 or 16 on the
+    tile path; a walk of 16 on the L1 path), ``chunks``, ``smem`` (dynamic
+    shared memory bytes a block: BGR(ref) and ``nd`` volume planes of the
+    tile; 0 on the L1 path), ``frames`` (frames a launch: grid z holds
+    65,535 frames, or 65,535 frames x D for the L1 path's volume launch)
+    and ``grid`` (of one launch of ``frames`` frames).
+
+    The weights cost most and are computed once a chunk, so the plan takes
+    the fewest chunks that fit the first budget of ``budgets`` that any
+    chunk fits, then the smallest such chunk (less shared memory, more
+    blocks an SM). Raises ValueError when an image's own rows exceed the
+    grid, or D exceeds the volume launch's grid z.
+    """
+    pad = win_size // 2
+    tile_plane = 4 * (TILE_H + 2 * pad) * (TILE_W + 2 * pad)
+    plan = None
+    for budget in budgets:
+        fits = [nd for nd in CHUNKS if (3 + nd) * tile_plane <= budget]
+        if fits:
+            nd = min(fits, key=lambda c: (-(-D // c), c))
+            frames = min(B, _build.GRID_YZ_MAX)
+            plan = dict(path="tile", nd=nd, chunks=-(-D // nd),
+                        smem=(3 + nd) * tile_plane, frames=frames,
+                        grid=(-(-W // TILE_W), -(-H // TILE_H), frames))
+            break
+    if plan is None:
+        per = 1 if ext_vol else D  # grid z of the volume launch a frame
+        if per > _build.GRID_YZ_MAX:
+            raise ValueError(f"GSW volume grid exceeds CUDA's limits (D={D})")
+        frames = min(B, _build.GRID_YZ_MAX // per)
+        plan = dict(path="l1", nd=CHUNK_L1, chunks=-(-D // CHUNK_L1), smem=0,
+                    frames=frames, grid=(-(-W // 32), -(-H // 8), frames))
+    gx, gy, _ = plan["grid"]
+    volume_gy = -(-(H + 2 * pad) // 8)  # the L1 path's volume launch
+    if gx > _build.GRID_X_MAX or gy > _build.GRID_YZ_MAX or (
+            plan["path"] == "l1" and volume_gy > _build.GRID_YZ_MAX):
+        raise ValueError(f"GSW kernel grid {plan['grid']} exceeds CUDA's "
+                         f"limits ({H}x{W})")
+    return plan
+
+
+def occupancy(plan, normalize=False, device=None):
+    """(registers a thread, spill bytes a thread, blocks resident per SM)
+    of the tile kernel that ``plan`` launches, from the CUDA runtime."""
+    import ctypes
+    if plan["path"] != "tile":
+        raise ValueError("occupancy is reported for the tile path only")
+    dev = torch.device("cuda") if device is None else torch.device(device)
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    info = (ctypes.c_int * 3)()
+    lib = _build.load_library("gsw_kernel")
+    err = lib.gsw_occupancy(plan["nd"], int(bool(normalize)), plan["smem"],
+                            idx, ctypes.cast(info, ctypes.c_void_p))
+    if err != 0:
+        raise RuntimeError("GSW occupancy query failed: "
+                           + lib.gsw_error_string(err).decode())
+    return tuple(info)
 
 
 def _pack_planes(chw, win_size, fill):
@@ -72,7 +148,8 @@ def _directions(imgs1, imgs2, consistent):
 
 
 def _gsw_pass(planes, *, H, W, win_size, min_disp, max_disp, gamma, f_max,
-              step=1, normalize=False, ext_vol=False, return_cost=False):
+              step=1, normalize=False, ext_vol=False, return_cost=False,
+              plan=None):
     """Matching pass over a frame stack of planes.
 
     planes : (B, 6, Hp, Wp) from :func:`_build_planes`, or with
@@ -86,7 +163,9 @@ def _gsw_pass(planes, *, H, W, win_size, min_disp, max_disp, gamma, f_max,
     where column ``x - d`` leaves the image (None unless
     ``return_cost``).
 
-    A CUDA tensor launches the kernel and adds one to ``launches``; a CPU
+    A CUDA tensor launches the kernel as ``plan`` lays it out (default
+    :func:`_plan` of this call's shapes; a stack of more frames than a
+    launch takes runs in pieces) and adds one to ``launches``; a CPU
     tensor runs :func:`_gsw_pass_plain`; any other device raises.
     """
     global launches
@@ -105,22 +184,29 @@ def _gsw_pass(planes, *, H, W, win_size, min_disp, max_disp, gamma, f_max,
     dev = planes.device
     B, C, Hp, Wp = planes.shape
     D = max_disp - min_disp + 1
-    vol = (None if ext_vol else
-           torch.empty((B, D, Hp, Wp), dtype=torch.float32, device=dev))
+    if plan is None:
+        plan = _plan(win_size, step, D, B, H, W, ext_vol=ext_vol)
+    vol = (torch.empty((plan["frames"], D, Hp, Wp), dtype=torch.float32,
+                       device=dev)
+           if plan["path"] == "l1" and not ext_vol else None)
     disp = torch.empty((B, H, W), dtype=torch.int32, device=dev)
     cost = (torch.empty((B, D, H, W), dtype=torch.float32, device=dev)
             if return_cost else None)
 
     lib = _build.load_library("gsw_kernel")
-    err = lib.gsw_pass(
-        planes.data_ptr(), None if vol is None else vol.data_ptr(),
-        disp.data_ptr(), None if cost is None else cost.data_ptr(),
-        B, C, H, W, Hp, Wp, win_size, step, min_disp, D, float(gamma),
-        float(f_max), int(bool(normalize)), int(bool(ext_vol)), dev.index,
-        torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError("GSW kernel launch failed: "
-                           + lib.gsw_error_string(err).decode())
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for b0, b1 in _build.frame_pieces(B, plan["frames"]):
+        err = lib.gsw_pass(
+            planes.data_ptr() + b0 * C * Hp * Wp * 4,
+            None if vol is None else vol.data_ptr(),
+            disp.data_ptr() + b0 * H * W * 4,
+            None if cost is None else cost.data_ptr() + b0 * D * H * W * 4,
+            b1 - b0, C, H, W, Hp, Wp, win_size, step, min_disp, D,
+            float(gamma), float(f_max), int(bool(normalize)),
+            int(bool(ext_vol)), plan["nd"], plan["smem"], dev.index, stream)
+        if err != 0:
+            raise RuntimeError("GSW kernel launch failed: "
+                               + lib.gsw_error_string(err).decode())
     launches += 1
     return disp, cost
 

@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from simplestereo_tpu_torch import _build
 from simplestereo_tpu_torch.passive import asw_cuda
 
 SMEM_MAX = 232_448
@@ -66,7 +67,8 @@ def test_plan_main_configuration():
     for H, W in ((288, 384), (720, 1280)):
         plan = asw_cuda._plan(35, 1, 11, 1, H, W)
         assert plan == dict(path="tile", chunk=12, dcp=12, jg=18,
-                            smem=69_824, grid=(-(-W // 32), -(-H // 8), 1))
+                            smem=69_824, frames=1,
+                            grid=(-(-W // 32), -(-H // 8), 1))
         assert plan["smem"] <= THREE_BLOCKS
 
 
@@ -127,11 +129,23 @@ def test_plan_tad_rows_conflict_free(D):
     assert len({(t * dcp // 4) % 8 for t in range(8)}) == 8
 
 
-def test_plan_rejects_grid_beyond_limits():
-    with pytest.raises(ValueError, match="grid"):
-        asw_cuda._plan(35, 1, 128, 65_535, 8, 8)
-    with pytest.raises(ValueError, match="grid"):
-        asw_cuda._plan(35, 1, 11, 1, 8 * 65_536, 8)
+@pytest.mark.parametrize("case", ["deep_stack", "tall_image"])
+def test_plan_rejects_grid_beyond_limits(case):
+    """A stack whose frames x chunks pass grid z runs in launches of as
+    many frames as fit (65,535 frames at D = 128 in 12 pieces of at most
+    5,957); an image whose own rows pass grid y is refused."""
+    if case == "deep_stack":
+        plan = asw_cuda._plan(35, 1, 128, 65_535, 8, 8)
+        nchunks = -(-128 // plan["chunk"])
+        assert plan["frames"] == 65_535 // nchunks == 5_957
+        assert plan["grid"][2] == plan["frames"] * nchunks <= 65_535
+        pieces = _build.frame_pieces(65_535, plan["frames"])
+        assert len(pieces) == 12 and pieces[-1][1] == 65_535
+        l1 = asw_cuda._plan(35, 1, 128, 70_000, 8, 8, budgets=())
+        assert l1["frames"] == 65_535 == l1["grid"][2]
+    else:
+        with pytest.raises(ValueError, match="grid"):
+            asw_cuda._plan(35, 1, 11, 1, 8 * 65_536, 8)
 
 
 def test_cpu_pass_ignores_plan():
