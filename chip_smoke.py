@@ -3,8 +3,9 @@
 
     python3 chip_smoke.py
 
-Builds the kernels of ``simplestereo_tpu_torch/csrc/`` (one nvcc per
-source, all started together) and drives the port's main paths:
+Builds the kernels of ``simplestereo_tpu_torch/csrc/`` and the host
+libraries of ``simplestereo_tpu_torch/native/`` (one compiler per source,
+all started together) and drives the port's main paths:
 
 - ASW: checks the ASW kernel against its plain PyTorch twin on the card
   (and a stack too deep for one launch's grid against the same stack in
@@ -39,7 +40,23 @@ source, all started together) and drives the port's main paths:
   both distorted cameras, then ``directRectify`` -> ``rectifyImages`` ->
   ``StereoASW(35, 14, 4, 15, 17.5, consistent=True).compute`` ->
   ``get3DPoints`` -> ``exportPLY``/``importPLY``, checked against the CPU
-  path, the plane and a float64 reprojection, and timed stage by stage.
+  path, the plane and a float64 reprojection, and timed stage by stage
+  (``exportPLY`` through the native writer);
+- the native PLY writer and parser on that 1280x720 cloud in four forms,
+  byte-identical to ``numpy.savetxt``'s file and equal to
+  ``numpy.loadtxt``'s reading, with both timed on the card's host;
+- S1, the IIR phase-unwrapping kernel: ``torch.equal`` to its twin on
+  five shapes (one row, one column, 33x47, 720p, 1,100 rows), both
+  precisions and three taus, and timed against the chain of dependent
+  steps; on the FTP phase below, what the main path's launch returned
+  ``torch.equal`` to the twin, and both timed there;
+- 3-D scanning at 1280x720 on a fixed camera-projector rig with lens
+  distortion: a Gray-code scan (42 captures, black and white) rendered
+  through a plane on the card, its decode integer-equal to the CPU path,
+  the plane recovered, ``GrayCodeDouble`` once and the scan's stages
+  timed; FTP on a rendered fringe plane (``getCloud``, ``getCloudBatch``
+  against per-frame calls, the IIR unwrapping through S1, the three
+  subclasses), timed.
 
 Every kernel's JSON record carries ``bound_ms``, the least time the card
 could take for the kernel's work at the timed shape: the larger of its
@@ -50,7 +67,8 @@ Every phase prints one line; any failed check raises, so the exit code is
 nonzero and no result line is printed. The last two lines are the kernels'
 JSON record and ``{"ok": true, "device": {...}}``.
 
-Needs a CUDA card, nvcc and the repository checkout; imports no JAX.
+Needs a CUDA card, nvcc, g++ and the repository checkout; imports no
+JAX, Pillow or matplotlib.
 """
 
 import json
@@ -60,7 +78,9 @@ import subprocess
 import sys
 import time
 
-sys.modules["jax"] = None  # the port must run without JAX
+# The port must run without JAX, Pillow and matplotlib.
+for _name in ("jax", "PIL", "matplotlib"):
+    sys.modules[_name] = None
 
 import numpy as np
 import torch
@@ -1260,6 +1280,497 @@ def pipeline_phase(dev, card):
           f"{med['rectifyImages']:.2f} ms, compute {med['compute']:.2f} ms, "
           f"get3DPoints {med['get3DPoints']:.2f} ms, exportPLY "
           f"{med['exportPLY']:.1f} ms, chain {med['chain']:.1f} ms | {card}")
+    return pts, l
+
+
+def host_name():
+    """The CPU model (where /proc/cpuinfo names it), architecture and core
+    count of the card's host."""
+    import os
+    import platform
+    model = None
+    try:
+        with open("/proc/cpuinfo") as f:
+            for ln in f:
+                if ln.split(":")[0].strip() in ("model name", "Model"):
+                    model = ln.split(":", 1)[1].strip()
+                    break
+    except OSError:
+        pass
+    return ", ".join(x for x in (model, platform.machine(),
+                                 f"{os.cpu_count()} cores") if x)
+
+
+def ply_phase(card, pts, img):
+    """Phase 17: the native PLY writer and parser on phase 16's 1280x720
+    cloud, in the xyz, xyz + colour, xyz + integer intensity and xyz +
+    float intensity forms: the native file byte-identical to the
+    numpy.savetxt writer's, importPLY equal to numpy.loadtxt's reading;
+    seconds of both on the card's host."""
+    import os
+    import tempfile
+
+    from simplestereo_tpu_torch import points
+
+    forms = (("xyz", None), ("rgb", img), ("int", img[:, :, 1]),
+             ("float", img[:, :, 1].astype(np.float32) / 255))
+    out = []
+    with tempfile.TemporaryDirectory() as tmp:
+        a, b = os.path.join(tmp, "a.ply"), os.path.join(tmp, "b.ply")
+        for name, ref in forms:
+            t0 = time.perf_counter()
+            points.exportPLY(pts, a, referenceImage=ref)
+            t1 = time.perf_counter()
+            points._export_ply_plain(pts, b, referenceImage=ref)
+            t2 = time.perf_counter()
+            with open(a, "rb") as fa, open(b, "rb") as fb:
+                check(fa.read() == fb.read(),
+                      f"PLY {name}: native file differs from savetxt's")
+            cols = range({"xyz": 3, "rgb": 6}.get(name, 4))
+            t3 = time.perf_counter()
+            back = points.importPLY(a, *cols)
+            t4 = time.perf_counter()
+            plain = points._import_ply_plain(a, *cols)
+            t5 = time.perf_counter()
+            check(np.array_equal(back, plain, equal_nan=True),
+                  f"PLY {name}: native read differs from loadtxt's")
+            check(back.shape == (pts.shape[0] * pts.shape[1], len(cols)),
+                  f"PLY {name}: {back.shape} rows read")
+            out.append(f"{name} write {t1 - t0:.3f} s (savetxt "
+                       f"{t2 - t1:.3f} s), read {t4 - t3:.3f} s (loadtxt "
+                       f"{t5 - t4:.3f} s), {os.path.getsize(a) / 1e6:.1f} MB")
+    h, w = pts.shape[:2]
+    print(f"phase 17 PLY {w}x{h} cloud: native files byte-identical to "
+          f"savetxt's, native reads equal to loadtxt's, in {len(forms)} "
+          f"forms | "
+          + "; ".join(out) + f" | host: {host_name()} | {card}")
+
+
+# Phase 18: the S1 kernel against its twin, bit for bit, in both
+# precisions, on a phase wrapped from a smooth field plus noise
+# (probes.iir_variants.wrapped_phase). Shapes:
+# one row, one column, a small ragged block, 720p, and more rows (1,100)
+# than one block has threads (1,024).
+IIR_SHAPES = ((1, 1280), (720, 1), (33, 47), (720, 1280), (1100, 64))
+IIR_TAUS = (0.0, 0.5, 1.0)
+IIR_TIMED = (720, 1280)
+
+
+def iir_phase(dev, card):
+    """Phase 18: S1 (the IIR unwrapping kernel) bit-equal to its twin on
+    the card at every shape, precision and tau; CUDA-event times of
+    kernel and twin at 720p against the chain and the bytes. Returns the
+    largest |kernel - twin| measured."""
+    from simplestereo_tpu_torch import unwrapping
+    from simplestereo_tpu_torch.probes.iir_variants import wrapped_phase
+
+    n_cases, max_err, p_ms = 0, 0.0, {}
+    t0 = time.perf_counter()
+    for h, w in IIR_SHAPES:
+        for dtype in (np.float32, np.float64):
+            t = torch.tensor(wrapped_phase(h, w, dtype), device=dev)
+            # the plan's ring (a slot per row) and the smallest ring
+            # that keeps live rows apart (slot y % ring_rows)
+            plans = [unwrapping._plan(h, w, t.element_size()),
+                     unwrapping._plan(h, w, t.element_size(),
+                                      ring_rows=min(h, w // 2 + 2))]
+            for tau in IIR_TAUS:
+                a = torch.cuda.Event(enable_timing=True)
+                b = torch.cuda.Event(enable_timing=True)
+                a.record()
+                p = unwrapping._iir_unwrap_plain(t, tau)
+                b.record()
+                b.synchronize()
+                if (h, w) == IIR_TIMED and tau == 0.5:
+                    p_ms[dtype] = a.elapsed_time(b)
+                for plan in plans:
+                    n0 = unwrapping.launches
+                    k = unwrapping._iir_unwrap(t, tau, plan=plan)
+                    torch.cuda.synchronize()
+                    check(unwrapping.launches == n0 + 1,
+                          f"S1 {h}x{w}: launch not counted")
+                    err = (k - p).abs().max().item()
+                    max_err = max(max_err, err)
+                    check(k.dtype == t.dtype and torch.equal(k, p),
+                          f"S1 {h}x{w} {dtype.__name__} tau {tau} ring "
+                          f"{plan['ring_rows']}: kernel differs from twin, "
+                          f"max abs {err:.3g}")
+                n_cases += 1
+    cases_s = time.perf_counter() - t0
+    h, w = IIR_TIMED
+    k_ms = {}
+    for dtype in (np.float32, np.float64):
+        ins = [torch.tensor(wrapped_phase(h, w, dtype, seed=i), device=dev)
+               for i in range(6)]
+        k_ms[dtype], _ = cuda_ms(lambda x: unwrapping._iir_unwrap(x, 0.5),
+                                 ins)
+    steps = w + 2 * (h - 1) + 2 * (w - 1)
+    bound_ms, bound_by = s1_bound(h, w, 4)
+    k32, k64 = k_ms[np.float32], k_ms[np.float64]
+    print(f"phase 18 S1 IIR unwrap kernel vs twin: torch.equal on {n_cases} "
+          f"cases ({', '.join(f'{a}x{b}' for a, b in IIR_SHAPES)}; float32 "
+          f"and float64; tau {IIR_TAUS}), each with a slot per row and with "
+          f"the smallest ring, max |kernel - twin| {max_err:g}, "
+          f"{cases_s:.1f} s | {w}x{h}, tau 0.5: kernel "
+          f"{k32:.3f} ms float32, {k64:.3f} ms float64; twin "
+          f"{p_ms[np.float32]:.1f} / {p_ms[np.float64]:.1f} ms; chain "
+          f"{steps} dependent steps ({k32 * 1e6 / steps:.0f} ns a step in "
+          f"float32); bound {bound_ms:.4f} ms ({bound_by}) | {card}")
+    return max_err
+
+
+def s1_bound(h, w, itemsize):
+    """(bound_ms, bound_by) of S1 on an h x w map: the phase read once and
+    the map written once; some 30 operations a pixel (three predictions
+    of 9 each, 2 adds, a division)."""
+    return bound(30 * h * w, 2 * itemsize * h * w)
+
+
+def s1_main_path(dev, phase, unwrapped, max_err):
+    """S1 on the phase that FTP's getCloud gave infiniteImpulseResponse on
+    the main path: what the main path's launch returned and a new launch,
+    each torch.equal to the twin on the same input, CUDA-event times of
+    kernel and twin there. Returns the kernels-line entry."""
+    from simplestereo_tpu_torch import unwrapping
+
+    t = torch.as_tensor(phase, device=dev)
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    twin = unwrapping._iir_unwrap_plain(t, 1.0)
+    b.record()
+    b.synchronize()
+    plain_ms = a.elapsed_time(b)
+    main = torch.as_tensor(unwrapped, device=dev)
+    again = unwrapping._iir_unwrap(t, 1.0)
+    err = max((main - twin).abs().max().item(),
+              (again - twin).abs().max().item())
+    check(main.dtype == twin.dtype and torch.equal(main, twin)
+          and torch.equal(again, twin),
+          f"S1 on the FTP phase {tuple(t.shape)}: kernel differs from twin, "
+          f"max abs {err:.3g}")
+    ms, _ = cuda_ms(lambda x: unwrapping._iir_unwrap(x, 1.0), [t] * 6)
+    bound_ms, bound_by = s1_bound(*t.shape, t.element_size())
+    return {"name": "iir_unwrap", "route": "cuda",
+            "source": "simplestereo_tpu_torch/csrc/iir_unwrap_kernel.cu",
+            "replaces": "simplestereo_tpu/unwrapping.py:142",
+            "launches": None, "max_abs_err": max(err, max_err), "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None}
+
+
+# Phases 19-20: 3-D scanning at 1280x720, camera and projector: the
+# 128x96 scene of tests/test_active.py scaled ten times (focal length
+# 1400, a 40-unit baseline, a fronto plane), with a little lens
+# distortion on the camera and on the projector.
+SCAN_RES = (1280, 720)
+SCAN_K = np.array([[1400.0, 0, 639.5], [0, 1400.0, 359.5], [0, 0, 1]])
+SCAN_D1 = np.array([0.04, -0.02, 0.0005, -0.0005, 0.0])
+SCAN_D2 = np.array([-0.02, 0.01, 0.0, 0.0003, 0.0])
+GC_Z0, FTP_Z0, FTP_PERIOD = 500.0, 520.0, 16.0
+
+
+def scan_rig(dev):
+    import simplestereo_tpu_torch as tss
+    from simplestereo_tpu_torch.geometry import npgeom
+    return tss.StereoRig(SCAN_RES, SCAN_RES, SCAN_K, SCAN_K, SCAN_D1,
+                         SCAN_D2, npgeom.rodrigues_to_matrix([0, -0.05, 0]),
+                         [[-40.0], [1.0], [6.0]], device=dev)
+
+
+def pixel_rays(K, dist, res):
+    """(h*w, 3) rays z = 1 of every pixel of a distorted camera."""
+    from simplestereo_tpu_torch.geometry import npgeom
+    w, h = res
+    u, v = np.meshgrid(np.arange(w, dtype=np.float64),
+                       np.arange(h, dtype=np.float64))
+    ray = npgeom.undistort_points(np.stack([u, v], -1).reshape(-1, 2), K,
+                                  dist)
+    return np.concatenate([ray, np.ones((len(ray), 1))], 1)
+
+
+def emitting_pixel(q, K, dist, res):
+    """(mapu, mapv) float32 maps of the projector pixels that light the
+    points q (projector frame, one per camera pixel): a projector emits
+    towards a normalized point x from its pixel K * distort(x)."""
+    from simplestereo_tpu_torch.geometry import npgeom
+    w, h = res
+    xd = npgeom.distort_normalized(q[:, :2] / q[:, 2:], dist)
+    pu = K[0, 0] * xd[:, 0] + K[0, 1] * xd[:, 1] + K[0, 2]
+    pv = K[1, 1] * xd[:, 1] + K[1, 2]
+    return (pu.reshape(h, w).astype(np.float32),
+            pv.reshape(h, w).astype(np.float32))
+
+
+def plane_to_projector(rig, z0):
+    """The projector pixel that lights each camera pixel of ``rig`` on the
+    fronto plane z = z0."""
+    P = z0 * pixel_rays(rig.intrinsic1, rig.distCoeffs1, rig.res1)
+    return emitting_pixel(P @ rig.R.T + rig.T.ravel(), rig.intrinsic2,
+                          rig.distCoeffs2, rig.res1)
+
+
+def camera2_to_projector(rig, z0):
+    """For each camera-2 pixel of ``rig``, the pixel of a projector at
+    camera 1's pose with camera 1's optics that lights it on the plane
+    z = z0 (camera-1 frame)."""
+    d = pixel_rays(rig.intrinsic2, rig.distCoeffs2, rig.res2) @ rig.R
+    C = -(rig.R.T @ rig.T).ravel()
+    P = C + ((z0 - C[2]) / d[:, 2])[:, None] * d
+    return emitting_pixel(P, rig.intrinsic1, rig.distCoeffs1, rig.res2)
+
+
+def render_stack(pats, mapu, mapv, dev, interpolation="nearest"):
+    """Camera captures of projected patterns, rendered on the card with the
+    port's remap (black where the ray misses the projector), as numpy."""
+    from simplestereo_tpu_torch import warp
+    mu = torch.as_tensor(mapu, device=dev)
+    mv = torch.as_tensor(mapv, device=dev)
+    return [warp.remap(torch.as_tensor(np.ascontiguousarray(p), device=dev),
+                       mu, mv, interpolation=interpolation).cpu().numpy()
+            for p in pats]
+
+
+def graycode_phase(dev, card):
+    """Phase 19: a Gray-code scan at 1280x720 (nx 11, ny 10: 42 captures,
+    black and white): decode integer-equal to the CPU path, the plane
+    recovered, the cloud against the CPU path's, GrayCodeDouble once, and
+    a scan's host-clock stages."""
+    import simplestereo_tpu_torch as tss
+    from simplestereo_tpu_torch.active import graycode as gc
+
+    rig = scan_rig(dev)
+    pats, nx, ny = tss.active.graycode_patterns(SCAN_RES)
+    W, H = SCAN_RES
+    full = [np.zeros((H, W), np.uint8), np.full((H, W), 255, np.uint8)]
+    mapu, mapv = plane_to_projector(rig, GC_Z0)
+    caps = render_stack(list(pats) + full, mapu, mapv, dev)
+    black, white = caps[-2:]
+    caps = caps[:-2]
+    scanner = tss.active.GrayCode(rig, device=dev)
+    cpu = tss.active.GrayCode(scan_rig("cpu"), device="cpu")
+    check(scanner.num_patterns == len(caps) == 2 * (nx + ny),
+          "Gray code: pattern count")
+    dec = scanner.decode(caps, black=black, white=white)
+    dec_cpu = cpu.decode(caps, black=black, white=white)
+    for a, b, name in zip(dec, dec_cpu, ("proj_x", "proj_y", "valid")):
+        check(np.array_equal(a, b), f"Gray code: {name} differs from the CPU "
+              f"path on {(a != b).sum()} pixels")
+    valid = dec[2].mean()
+    check(valid >= 0.5, f"Gray code: only {valid:.1%} of pixels valid")
+    pts = scanner.getCloud(caps, black=black, white=white)
+    pts_cpu = cpu.getCloud(caps, black=black, white=white)
+    check(pts.shape == pts_cpu.shape, "Gray code: cloud sizes differ")
+    a, b = pts.reshape(-1, 3), pts_cpu.reshape(-1, 3)
+    check(np.array_equal(np.isfinite(a), np.isfinite(b)),
+          "Gray code: non-finite patterns differ")
+    ok = np.isfinite(a).all(1)
+    rel = float((np.abs(a[ok] - b[ok]).max(1)
+                 / np.linalg.norm(b[ok], axis=1)).max())
+    check(rel <= 1e-5, f"Gray code: cloud vs CPU path rel err {rel:.3g}")
+    quant = GC_Z0 ** 2 / (40.0 * SCAN_K[0, 0])
+    zerr = float(np.median(np.abs(a[ok, 2] - GC_Z0)))
+    check(zerr < 0.5 * quant, f"Gray code: median |z - z0| {zerr:.3f} >= "
+          f"half a step {0.5 * quant:.3f}")
+
+    # GrayCodeDouble: an uncalibrated projector at camera 1's pose with
+    # camera 1's optics (so camera 1 sees each projector pixel at its own
+    # position); both cameras decode it.
+    m1 = np.meshgrid(np.arange(W, dtype=np.float32),
+                     np.arange(H, dtype=np.float32))
+    m2 = camera2_to_projector(rig, GC_Z0)
+    caps1 = render_stack(pats, *m1, dev)
+    caps2 = render_stack(pats, *m2, dev)
+    double = tss.active.GrayCodeDouble(rig, SCAN_RES, device=dev)
+    t0 = time.perf_counter()
+    dpts = double.getCloud(caps1, caps2).reshape(-1, 3)
+    double_ms = (time.perf_counter() - t0) * 1e3
+    dpts = dpts[np.isfinite(dpts).all(1)]
+    dz = abs(float(np.median(dpts[:, 2])) - GC_Z0)
+    check(len(dpts) > 0.1 * W * H and dz < 0.1 * GC_Z0,
+          f"GrayCodeDouble: {len(dpts)} points, median z off by {dz:.1f}")
+
+    # A scan's stages on the host clock, each ended by a synchronize.
+    def stages():
+        t = [time.perf_counter()]
+        stack, shadow = gc._assemble_stack(caps, black, white, rig.res1,
+                                           scanner.num_patterns)
+        t.append(time.perf_counter())
+        up = torch.as_tensor(stack, device=dev)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        und = gc._undistort_stack(up, rig.intrinsic1, rig.distCoeffs1)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        px, py, v = gc._decode_validity(und, shadow=shadow,
+                                        **scanner._decode_kw(rig.res2))
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        cloud = gc._graycode_cloud(px, py, *scanner._cloud_args())
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        out = gc._gather_points(cloud, v, None)
+        t.append(time.perf_counter())
+        return [(b - a) * 1e3 for a, b in zip(t, t[1:])], out
+
+    runs = [stages() for _ in range(4)][1:]
+    check(np.array_equal(runs[-1][1], pts, equal_nan=True),
+          "Gray code: staged scan differs from getCloud")
+    names = ("stack assembly", "upload", "remap", "decode", "cloud", "gather")
+    med = [statistics.median(r[0][i] for r in runs) for i in range(6)]
+    scan_ms, _ = host_ms(lambda: scanner.getCloud(caps, black=black,
+                                                  white=white), [()] * 4)
+    print(f"phase 19 Gray code {W}x{H} camera and projector (nx {nx}, ny "
+          f"{ny}: {len(caps)} captures + black, white; camera and projector "
+          f"distorted): decode integer-equal to the CPU path, "
+          f"{valid:.1%} valid, median |z - z0| {zerr:.3f} (half a step "
+          f"{0.5 * quant:.3f}), {len(a)} points within rel {rel:.3g} of "
+          f"the CPU path; GrayCodeDouble {len(dpts)} points, median z off "
+          f"by {dz:.2f}, {double_ms:.0f} ms | host clock: getCloud "
+          f"{scan_ms:.1f} ms a scan (median of 3); stages "
+          + ", ".join(f"{n} {m:.1f} ms" for n, m in zip(names, med))
+          + f" | {card}")
+
+
+
+def ftp_phase(dev, card, s1_max_err):
+    """Phase 20: FTP at 1280x720 on a rendered fringe plane: the plane
+    recovered, getCloudBatch (B = 8) against per-frame calls, the IIR
+    unwrapping (S1) as unwrappingMethod, and each subclass once. Returns
+    S1's kernels-line entry: its launches on this main path (the IIR
+    getCloud), the kernel against the twin on the phase it was given
+    there, and their times on it (``s1_max_err``: phase 18's largest
+    |kernel - twin|, folded into the entry's)."""
+    import simplestereo_tpu_torch as tss
+    from simplestereo_tpu_torch import unwrapping
+    from simplestereo_tpu_torch.active import ftp as ftpm
+
+    rig = scan_rig(dev)
+    W, H = SCAN_RES
+    # Undistorting the camera frame leaves a black border of up to ~8 px
+    # (the rig's distortion at the corners), where the separable unwrap
+    # would run through noise and lose the fringe order: the scan's ROI
+    # leaves it out, as a user's computeROI would.
+    roi = (16, 16, W - 32, H - 32)
+    H, W = roi[3], roi[2]
+    fringe = tss.active.buildFringe(FTP_PERIOD, dims=SCAN_RES,
+                                    stripeColor="red")
+    mapu, mapv = plane_to_projector(rig, FTP_Z0)
+    cam = render_stack([fringe], mapu, mapv, dev, "linear")[0]
+    ftp = tss.active.StereoFTP(rig, fringe, FTP_PERIOD, device=dev)
+
+    m = H // 4  # the centre of tests/test_active.py's bound, scaled
+
+    def z_ok(cloud, where, med_tol=0.02, p80_tol=0.05):
+        c = cloud[m:-m, m:-m, 2]
+        c = c[np.isfinite(c)]
+        med = abs(float(np.median(c)) - FTP_Z0)
+        p80 = float(np.percentile(np.abs(c - FTP_Z0), 80))
+        check(c.size > 0.8 * (H - 2 * m) * (W - 2 * m)
+              and med < med_tol * FTP_Z0
+              and p80 < p80_tol * FTP_Z0, f"FTP {where}: median z off by "
+              f"{med:.2f}, 80th percentile {p80:.2f}, {c.size} points")
+        return med
+
+    cloud = ftp.getCloud(cam, roi=roi)
+    check(cloud.shape == (H, W, 3) and cloud.dtype == np.float64,
+          "FTP: cloud shape")
+    med = z_ok(cloud, "getCloud")
+
+    frames = np.stack([np.roll(cam, 3 * i, axis=0) for i in range(8)])
+    batch = ftp.getCloudBatch(frames, roi=roi)
+    per = [ftp.getCloud(f, roi=roi) for f in frames]
+    bit_equal = all(np.array_equal(batch[i], per[i], equal_nan=True)
+                    for i in range(8))
+    dzb = 0.0
+    for i in range(8):
+        both = np.isfinite(batch[i, ..., 2]) & np.isfinite(per[i][..., 2])
+        check(both.mean() > 0.95, f"FTP batch frame {i}: finite share")
+        dzb = max(dzb, float(np.abs(batch[i, ..., 2]
+                                    - per[i][..., 2])[both].max()))
+    check(dzb < 1e-2, f"FTP batch vs per-frame: max |dz| {dzb:.3g}")
+
+    # The IIR unwrapping through S1, on its own main path. The callback
+    # keeps the phase S1 is given and what it returns, to be held against
+    # the twin after the launches are read.
+    seen = {}
+
+    def iir_method(p):
+        seen["phase"] = p
+        seen["out"] = unwrapping.infiniteImpulseResponse(p, 1.0, device=dev)
+        return seen["out"]
+
+    unwrapping.launches = 0
+    iir = ftp.getCloud(cam, roi=roi, unwrappingMethod=iir_method)
+    s1_launches = unwrapping.launches
+    check(s1_launches == 1, f"FTP IIR: {s1_launches} S1 launches")
+    med_iir = z_ok(iir, "IIR unwrapping")
+    phase_h, phase_w = seen["phase"].shape
+    check(seen["phase"].dtype == np.float32, "FTP IIR: phase dtype")
+    s1 = s1_main_path(dev, seen["phase"], seen["out"], s1_max_err)
+    s1["launches"] = s1_launches
+
+    ana_fringe = tss.active.buildAnaglyphFringe(FTP_PERIOD, dims=SCAN_RES)
+    ana_cam = render_stack([ana_fringe], mapu, mapv, dev, "linear")[0]
+    ana = tss.active.StereoFTPAnaglyph(rig, ana_fringe, FTP_PERIOD,
+                                       stripeColor="green", device=dev)
+    med_ana = z_ok(ana.getCloud(ana_cam, roi=roi), "anaglyph", 0.03, 0.1)
+    mapping = tss.active.StereoFTP_Mapping(rig, fringe, FTP_PERIOD,
+                                           device=dev)
+    mc = mapping.getCloud(cam, roi=roi)[H // 3:-(H // 3), H // 3:-(H // 3), 2]
+    med_map = abs(float(np.nanmedian(mc)) - FTP_Z0)
+    check(med_map < 0.1 * FTP_Z0, f"FTP Mapping: median z off by {med_map}")
+    phase = tss.active.StereoFTP_PhaseOnly(rig, fringe, FTP_PERIOD,
+                                           device=dev).getPhase(cam, roi=roi)
+    pstd = float(np.nanstd(phase[m:-m, m:-m]))
+    check(phase.shape == (H, W) and pstd < 0.5,
+          f"FTP PhaseOnly: phase std {pstd:.3f}")
+
+    one_ms, _ = host_ms(lambda: ftp.getCloud(cam, roi=roi), [()] * 4)
+    b_ms, _ = host_ms(lambda: ftp.getCloudBatch(frames, roi=roi), [()] * 3)
+    iir_ms, _ = host_ms(lambda: ftp.getCloud(
+        cam, roi=roi, unwrappingMethod=lambda p:
+        unwrapping.infiniteImpulseResponse(p, 1.0, device=dev)), [()] * 3)
+
+    def split():
+        t = [time.perf_counter()]
+        prep = ftp._cloud_prep(cam, 0.5, roi)
+        t.append(time.perf_counter())
+        tt = ftp._rig_tensors()
+        fc, r = prep["fc"], prep["radius"]
+        out = ftpm._ftp_cloud_fused(
+            prep["imgObj"][None], torch.tensor([prep["z_plane"]],
+                                               device=dev),
+            tt["M"], tt["T"], tt["K2"], tt["dist2"], tt["fringe_gray"],
+            ftpm._f32(fc - r, dev)[None], ftpm._f32(fc + r, dev)[None],
+            torch.as_tensor(prep["stripe_idx"], device=dev)[None], tt["peak"],
+            tt["fp"], tt["ep"], tt["Rect1"], tt["Rect2"], tt["R_inv3"],
+            tt["baseline"], res=SCAN_RES, roi=prep["roi"],
+            gray_mode=prep["gray_mode"], row_inv=ftp._fringe_row_inv)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        ftpm._cloud_out(out[0], None)
+        t.append(time.perf_counter())
+        return [(b - a) * 1e3 for a, b in zip(t, t[1:])]
+
+    sp = [split() for _ in range(4)][1:]
+    sp = [statistics.median(x[i] for x in sp) for i in range(3)]
+    print(f"phase 20 FTP {SCAN_RES[0]}x{SCAN_RES[1]}, ROI {W}x{H} (period "
+          f"{FTP_PERIOD:g}, plane z0 {FTP_Z0:g}, distorted camera and "
+          f"projector): getCloud median z "
+          f"off by {med:.3f}; getCloudBatch B=8 vs per-frame max |dz| "
+          f"{dzb:.3g} ({'bit-equal' if bit_equal else 'not bit-equal'}); "
+          f"IIR unwrapping (S1, {s1_launches} launch) median z off by "
+          f"{med_iir:.3f}, S1 on its {phase_w}x{phase_h} float32 phase "
+          f"torch.equal to the twin, kernel {s1['ms']:.3f} ms, twin "
+          f"{s1['plain_ms']:.1f} ms, bound {s1['bound_ms']:.4f} ms; anaglyph {med_ana:.3f}, Mapping {med_map:.3f}, "
+          f"PhaseOnly phase std {pstd:.4f} | host clock: getCloud "
+          f"{one_ms:.1f} ms a cloud, getCloudBatch {b_ms:.1f} ms a batch of "
+          f"8 ({b_ms / 8:.1f} ms a cloud), IIR getCloud {iir_ms:.1f} ms; "
+          f"getCloud stages: preamble (upload, undistort, stripe, host "
+          f"control plane) {sp[0]:.1f} ms, dense pipeline {sp[1]:.1f} ms, "
+          f"readback {sp[2]:.1f} ms | {card}")
+    return s1
 
 
 def main():
@@ -1281,15 +1792,17 @@ def main():
           f"{sys.version.split()[0]}")
 
     t0 = time.perf_counter()
-    names = ["asw_kernel", "sgm_kernel", "gsw_kernel", "rotate_kernel"]
-    _build.build(names)
-    for name in names:
+    names = ["asw_kernel", "sgm_kernel", "gsw_kernel", "rotate_kernel",
+             "iir_unwrap_kernel"]
+    _build.build(names + list(_build.HOST_SOURCES))
+    for name in names + list(_build.HOST_SOURCES):
         _build.load_library(name)
     build_s = time.perf_counter() - t0
     ptxas = [ptxas_summary(_build.compile_log(name)) for name in names]
-    print(f"phase 2 build: {' + '.join(names)} in parallel {build_s:.2f} "
-          f"s | registers/spill bytes a thread: " + " | ".join(ptxas)
-          + f" | {card}")
+    print(f"phase 2 build: {' + '.join(names)} (nvcc) and "
+          f"{' + '.join(_build.HOST_SOURCES)} (g++) in parallel "
+          f"{build_s:.2f} s | registers/spill bytes a thread: "
+          + " | ".join(ptxas) + f" | {card}")
 
     # ---- phase 3: kernel vs plain twin, every option case --------------
     worst = [0.0, 0.0, 0.0]
@@ -1496,10 +2009,17 @@ def main():
     torch.cuda.empty_cache()
     rotate_entry = rotate_phase(dev, card)
     torch.cuda.empty_cache()
-    pipeline_phase(dev, card)
+    pts, img = pipeline_phase(dev, card)
+    ply_phase(card, pts, img)
+    del pts, img
+    s1_max_err = iir_phase(dev, card)
+    torch.cuda.empty_cache()
+    graycode_phase(dev, card)
+    torch.cuda.empty_cache()
+    iir_entry = ftp_phase(dev, card, s1_max_err)
 
     print(json.dumps({"kernels": [asw_entry, sgm_entry, gsw_entry,
-                                  rotate_entry]}))
+                                  rotate_entry, iir_entry]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

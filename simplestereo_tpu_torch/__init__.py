@@ -14,10 +14,14 @@ numpy, as in the JAX package.
 
 Every Pallas kernel of the JAX package becomes a hand-written CUDA kernel
 for ``sm_90a`` (sources under ``csrc/``, built with ``nvcc`` at first use,
-see :mod:`._build`). Beside each kernel lives its plain PyTorch twin: the
-CPU path, and the version the kernel is checked against on the card.
+see :mod:`._build`), and so does the IIR unwrapping scan of
+:mod:`.unwrapping`. Beside each kernel lives its plain PyTorch twin: the
+CPU path, and the version the kernel is checked against on the card. Host
+C++ (the PLY writer, the PNG row filters) lives under ``native/`` and is
+built with ``g++`` at first use.
 
-This package imports ``torch``, ``numpy`` and ``scipy`` and never ``jax``.
+This package imports ``torch``, ``numpy`` and ``scipy`` and never ``jax``
+or Pillow; ``matplotlib`` only when an FTP debug plot is asked for.
 """
 
 __version__ = "0.1.0"
@@ -33,6 +37,10 @@ from . import points
 from . import utils
 from . import evaluation
 from . import probes
+from . import imgio
+from . import unwrapping
+from . import active
+from . import native
 from ._device import resolve_device
 
 __all__ = [
@@ -48,5 +56,9 @@ __all__ = [
     "utils",
     "evaluation",
     "probes",
+    "imgio",
+    "unwrapping",
+    "active",
+    "native",
     "resolve_device",
 ]

@@ -18,11 +18,19 @@ The sources, one per TPU kernel of the JAX package:
 - ``gsw_kernel.cu``: GSW volume + support-weight aggregation (K3,
   ``gsw_pallas._gsw_kernel``);
 - ``rotate_kernel.cu``: per-plane dynamic roll (K4, the
-  ``benchmarks/probe_dynamic_rotate.py`` probe).
+  ``benchmarks/probe_dynamic_rotate.py`` probe);
+- ``iir_unwrap_kernel.cu``: the IIR phase-unwrapping recursion (S1, the
+  ``lax.scan`` of ``simplestereo_tpu.unwrapping._iir_unwrap``).
+
+The host sources are built the same way with ``g++`` (``HOST_SOURCES``):
+``native/_ply.cpp``, the PLY writer and parser, and ``native/_png.cpp``,
+the PNG row filters undone.
 
 Pointers and the stream are passed as ``c_void_p``, integers as ``c_int``
-and floats as ``c_float``; every C entry returns ``cudaGetLastError()`` of
-its launches, which the caller turns into an exception.
+(``c_longlong`` for sizes of the host libraries), floats as ``c_float`` or
+``c_double``; every kernel's C entry returns ``cudaGetLastError()`` of its
+launches, which the caller turns into an exception, and the host entries
+return 0 or an error code.
 """
 
 import ctypes
@@ -39,7 +47,13 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
 
+GXX_FLAGS = ("-O2", "-shared", "-fPIC", "-std=c++17", "-pthread")
+# Host libraries: name -> source, built with g++ and GXX_FLAGS.
+HOST_SOURCES = {"ply": _CSRC.parent / "native" / "_ply.cpp",
+                "png": _CSRC.parent / "native" / "_png.cpp"}
+
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_L, _D, _S = ctypes.c_longlong, ctypes.c_double, ctypes.c_char_p
 # C signatures, by library: {function: (argtypes, restype)}.
 _SIGNATURES = {
     "asw_kernel": {
@@ -71,6 +85,23 @@ _SIGNATURES = {
         "rotate_planes": ([_P] * 3 + [_I] * 4 + [_P], _I),
         "rotate_error_string": ([_I], ctypes.c_char_p),
     },
+    "iir_unwrap_kernel": {
+        # phase, out, work, H, W, tau, double, threads, ring, smem, device,
+        # stream
+        "iir_unwrap": ([_P] * 3 + [_I] * 2 + [_D] + [_I] * 5 + [_P], _I),
+        "iir_error_string": ([_I], ctypes.c_char_p),
+    },
+    "ply": {
+        # path, header, header_len, xyz, n, mode, rgb, vals, as_int,
+        # precision
+        "ply_write": ([_S, _S, _L, _P, _L, _I, _P, _P, _I, _I], _I),
+        # path, n_skip, n_rows, n_cols, out
+        "ply_read": ([_S, _L, _L, _L, _P], _I),
+    },
+    "png": {
+        # in, height, stride, bpp, out
+        "png_unfilter": ([_P, _L, _L, _I, _P], _L),
+    },
 }
 
 
@@ -101,24 +132,42 @@ def _nvcc():
     return found
 
 
+def _gxx():
+    found = shutil.which("g++")
+    if found is None:
+        raise RuntimeError("g++ not found: building the host libraries "
+                           "needs a C++17 compiler on PATH")
+    return found
+
+
+def _compiler(name):
+    """The compiler and flags that build ``name``."""
+    if name in HOST_SOURCES:
+        return [_gxx(), *GXX_FLAGS]
+    return [_nvcc(), *NVCC_FLAGS]
+
+
 def _library_path(name):
-    src = _CSRC / f"{name}.cu"
+    src = HOST_SOURCES.get(name, _CSRC / f"{name}.cu")
+    flags = GXX_FLAGS if name in HOST_SOURCES else NVCC_FLAGS
     h = hashlib.sha256(src.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(flags).encode())
     return src, BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def compile_log(name):
-    """nvcc's output (ptxas register and spill report) for ``name``'s
-    current build, or '' when it was not built by this checkout yet."""
+    """The compiler's output (for nvcc, ptxas's register and spill report)
+    for ``name``'s current build, or '' when it was not built by this
+    checkout yet."""
     log = _library_path(name)[1].with_suffix(".log")
     return log.read_text() if log.exists() else ""
 
 
 def build(names):
-    """Compile each ``csrc/<name>.cu`` of ``names`` whose build is missing:
-    one nvcc per source, all started together, so a cold build of every
-    kernel takes as long as the slowest source rather than their sum.
+    """Compile each ``csrc/<name>.cu`` (or host source of ``HOST_SOURCES``)
+    of ``names`` whose build is missing: one compiler per source, all
+    started together, so a cold build of every library takes as long as
+    the slowest source rather than their sum.
     Returns when every one has finished; raises if any failed."""
     jobs = []
     for name in names:
@@ -130,13 +179,13 @@ def build(names):
         log = lib_path.with_suffix(f".{os.getpid()}.tmplog")
         with open(log, "w") as out:
             proc = subprocess.Popen(
-                [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+                [*_compiler(name), "-o", str(tmp), str(src)],
                 stdout=out, stderr=subprocess.STDOUT)
         jobs.append((src, lib_path, tmp, log, proc))
     failed = []
     for src, lib_path, tmp, log, proc in jobs:
         if proc.wait() != 0:
-            failed.append(f"nvcc failed for {src.name} (exit "
+            failed.append(f"build failed for {src.name} (exit "
                           f"{proc.returncode}):\n{log.read_text()}")
             tmp.unlink(missing_ok=True)
             log.unlink()
@@ -149,8 +198,8 @@ def build(names):
 
 @functools.cache
 def load_library(name):
-    """Build ``csrc/<name>.cu`` if its build is missing, load it, and set
-    the ctypes signatures of its C entries."""
+    """Build ``csrc/<name>.cu`` (or the host source ``name``) if its build
+    is missing, load it, and set the ctypes signatures of its C entries."""
     build([name])
     lib = ctypes.CDLL(str(_library_path(name)[1]))
     for fn, (argtypes, restype) in _SIGNATURES[name].items():

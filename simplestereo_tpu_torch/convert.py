@@ -9,12 +9,15 @@ constructor parameters (for SGM with P1 and P2 already resolved from
 their defaults), so converting one is reading them. The JAX matchers'
 engine choice (``aggregator``, ``engine``) has no counterpart: the
 device decides. A rig's state is its float64 arrays, copied by
-:func:`rig_from_jax`. Attributes are read with ``getattr``, so this module
-imports neither ``jax`` nor ``simplestereo_tpu``.
+:func:`rig_from_jax`. A scanner's is its rig and parameters
+(:func:`graycode_from_jax`, :func:`ftp_from_jax`). Attributes are read
+with ``getattr``, so this module imports neither ``jax`` nor
+``simplestereo_tpu``.
 """
 
 import numpy as np
 
+from ._device import resolve_device
 from .passive import StereoASW, StereoGSW, StereoSGM
 
 _ASW_PARAMS = ("winSize", "maxDisparity", "minDisparity", "gammaC", "gammaP",
@@ -77,3 +80,41 @@ def rig_from_jax(rig, device="cuda"):
     if hasattr(rig, "R_inv"):
         return StructuredLightRig(plain)
     return plain
+
+
+def graycode_from_jax(scanner, device="cuda"):
+    """Port's :class:`GrayCode` or :class:`GrayCodeDouble` scanning what
+    ``scanner`` (the JAX package's) scans, on ``device``."""
+    from .active import GrayCode, GrayCodeDouble
+
+    rig = rig_from_jax(scanner.rig, device=device)
+    kw = dict(black_thr=scanner.black_thr, white_thr=scanner.white_thr,
+              device=device)
+    if hasattr(scanner, "projRes"):
+        return GrayCodeDouble(rig, tuple(scanner.projRes), **kw)
+    return GrayCode(rig, **kw)
+
+
+def ftp_from_jax(ftp, device="cuda"):
+    """Port's FTP scanner of the same class (:class:`StereoFTP`,
+    :class:`StereoFTPAnaglyph`, :class:`StereoFTP_Mapping` or
+    :class:`StereoFTP_PhaseOnly`) computing what ``ftp`` (the JAX
+    package's) computes, on ``device``.
+
+    The JAX object keeps the grayscaled fringe, not the projected image,
+    so that fringe, its size, the carrier, the stripe's peak and the
+    stripe parameters are copied; what follows from the rig is computed
+    from the converted rig. A subclass of the user's raises ``TypeError``:
+    its grayscale hooks are JAX code."""
+    from . import active
+
+    cls = getattr(active, type(ftp).__name__, None)
+    if cls is None or not issubclass(cls, active.StereoFTP):
+        raise TypeError(f"no port of {type(ftp).__name__}")
+    out = cls.__new__(cls)
+    out.device = resolve_device(device)
+    out._setup(rig_from_jax(ftp.stereoRig, device=device),
+               np.array(ftp.fringe, np.float64), tuple(ftp.fringeDims),
+               float(ftp.fp), float(ftp.stripeCentralPeak), ftp.stripeColor,
+               ftp.stripeSensitivity)
+    return out

@@ -6,17 +6,56 @@ Point-cloud management: PLY export/import, disparity reprojection. The
 port of :mod:`simplestereo_tpu.points`.
 
 The reprojection runs on a device (float32, the products in the JAX
-package's order); the PLY writer and reader and :func:`distortPoints` are
-numpy copies. The PLY files are byte-identical to the JAX package's. The
-JAX package writes them through its g++-built serializer when it has one;
-this port writes through ``numpy.savetxt``, the JAX package's fallback,
-which gives the same bytes.
+package's order); :func:`distortPoints` is a numpy copy. The PLY writer
+and reader are host C++ (:mod:`.native`, the port of the JAX package's
+serializer, built with g++ at first use); the files are byte-identical to
+the JAX package's. ``_export_ply_plain``/``_import_ply_plain`` are the
+same work through ``numpy.savetxt``/``numpy.loadtxt``, which the tests
+hold the native code against.
 """
 
 import numpy as np
 import torch
 
+from . import native
 from ._device import resolve_device
+
+
+def _ply_header(points3D, referenceImage):
+    """(header lines, (n, 3) points, reference image or None, kind): kind
+    is "xyz", "rgb", "int" or "float", as the JAX package's exportPLY
+    chooses it."""
+    points3D = np.asarray(points3D)
+    originalShape = points3D.shape
+    pts = points3D.reshape(-1, 3)
+    header = [
+        "ply",
+        "format ascii 1.0",
+        "comment SimpleStereo point cloud export",
+        f"comment Original array shape {'x'.join(str(d) for d in originalShape)}",
+        f"element vertex {pts.shape[0]}",
+        "property double x",
+        "property double y",
+        "property double z",
+    ]
+    kind = "xyz"
+    if referenceImage is not None:
+        referenceImage = np.asarray(referenceImage)
+        if referenceImage.size == pts.size:  # BGR color image
+            header += [
+                "property uchar red",
+                "property uchar green",
+                "property uchar blue",
+            ]
+            kind = "rgb"
+        elif np.issubdtype(referenceImage.dtype, np.integer):
+            header.append("property int intensity")
+            kind = "int"
+        else:
+            header.append("property float intensity")
+            kind = "float"
+    header.append("end_header")
+    return header, pts, referenceImage, kind
 
 
 def exportPLY(points3D, filepath, referenceImage=None, precision=6):
@@ -25,7 +64,8 @@ def exportPLY(points3D, filepath, referenceImage=None, precision=6):
     Matches the reference format: double x/y/z properties, optional
     per-vertex color from a BGR image (written as RGB uchar) or a grayscale
     intensity (int or float), and a header comment recording the original
-    array shape.
+    array shape. Written by the native writer (:mod:`.native`, built at
+    first use); the file is byte-identical to the JAX package's.
 
     Parameters
     ----------
@@ -38,65 +78,75 @@ def exportPLY(points3D, filepath, referenceImage=None, precision=6):
     precision : int
         Decimal places for coordinates.
     """
-    points3D = np.asarray(points3D)
-    originalShape = points3D.shape
-    pts = points3D.reshape(-1, 3)
-    n = pts.shape[0]
-
-    header = [
-        "ply",
-        "format ascii 1.0",
-        "comment SimpleStereo point cloud export",
-        f"comment Original array shape {'x'.join(str(d) for d in originalShape)}",
-        f"element vertex {n}",
-        "property double x",
-        "property double y",
-        "property double z",
-    ]
-
-    fmt3 = " ".join([f"%.{precision}f"] * 3)
-    if referenceImage is None:
-        body_arr = pts
-        fmt = fmt3
+    header, pts, ref, kind = _ply_header(points3D, referenceImage)
+    header = ("\n".join(header) + "\n").encode()
+    if kind == "xyz":
+        native.write_ply(filepath, header, pts, precision=precision)
+    elif kind == "rgb":
+        native.write_ply(filepath, header, pts,
+                         rgb=ref.reshape(-1, 3)[:, ::-1], precision=precision)
     else:
-        referenceImage = np.asarray(referenceImage)
-        if referenceImage.size == pts.size:  # BGR color image
-            header += [
-                "property uchar red",
-                "property uchar green",
-                "property uchar blue",
-            ]
-            rgb = referenceImage.reshape(-1, 3)[:, ::-1]  # BGR -> RGB
-            body_arr = np.hstack([pts, rgb.astype(np.float64)])
-            fmt = fmt3 + " %d %d %d"
-        else:  # grayscale
-            gray = np.ravel(referenceImage)
-            if np.issubdtype(gray.dtype, np.integer):
-                header.append("property int intensity")
-                body_arr = np.hstack([pts, gray[:, None].astype(np.float64)])
-                fmt = fmt3 + " %d"
-            else:
-                header.append("property float intensity")
-                body_arr = np.hstack([pts, gray[:, None].astype(np.float64)])
-                fmt = fmt3 + f" %.{precision}f"
+        native.write_ply(filepath, header, pts, vals=np.ravel(ref),
+                         as_int=kind == "int", precision=precision)
 
-    header.append("end_header")
+
+def _export_ply_plain(points3D, filepath, referenceImage=None, precision=6):
+    """:func:`exportPLY` through ``numpy.savetxt``: the same bytes, for the
+    tests to hold the native writer against."""
+    header, pts, ref, kind = _ply_header(points3D, referenceImage)
+    fmt = " ".join([f"%.{precision}f"] * 3)
+    body = pts
+    if kind == "rgb":
+        body = np.hstack([pts, ref.reshape(-1, 3)[:, ::-1].astype(np.float64)])
+        fmt += " %d %d %d"
+    elif kind != "xyz":
+        body = np.hstack([pts, np.ravel(ref)[:, None].astype(np.float64)])
+        fmt += " %d" if kind == "int" else f" %.{precision}f"
     with open(filepath, "w") as f:
         f.write("\n".join(header) + "\n")
-        np.savetxt(f, body_arr, fmt=fmt)
+        np.savetxt(f, body, fmt=fmt)
+
+
+def _ply_layout(filename):
+    """(lines up to end_header, vertex count, property count) of a PLY
+    file's header."""
+    n_skip, n_vertex, n_cols = 0, None, 0
+    with open(filename, "r") as f:
+        for line in f:
+            n_skip += 1
+            t = line.split()
+            if t[:2] == ["element", "vertex"]:
+                n_vertex = int(t[2])
+            elif t and t[0] == "property":
+                n_cols += 1
+            if line.rstrip().lower() == "end_header":
+                return n_skip, n_vertex, n_cols
+    raise ValueError(f"{filename!r}: no end_header line")
 
 
 def importPLY(filename, *properties):
     """Read float property columns from an ASCII PLY file.
 
     Skips to ``end_header`` then parses the requested column indices
-    (default (0, 1, 2)) as floats.
+    (default (0, 1, 2)) as floats, with the native parser.
 
     Returns
     -------
     numpy.ndarray
         (N, len(properties)) float array.
     """
+    if not properties:
+        properties = (0, 1, 2)
+    n_skip, n_vertex, n_cols = _ply_layout(filename)
+    if n_vertex is None or n_cols == 0:
+        raise ValueError(f"{filename!r}: the header names no vertex "
+                         "element or no property")
+    data = native.read_ply(filename, n_skip, n_vertex, n_cols)
+    return data[:, list(properties)]
+
+
+def _import_ply_plain(filename, *properties):
+    """:func:`importPLY` through ``numpy.loadtxt``, for the tests."""
     if not properties:
         properties = (0, 1, 2)
     with open(filename, "r") as f:
