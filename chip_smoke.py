@@ -56,21 +56,40 @@ all started together) and drives the port's main paths:
   the plane recovered, ``GrayCodeDouble`` once and the scan's stages
   timed; FTP on a rendered fringe plane (``getCloud``, ``getCloudBatch``
   against per-frame calls, the IIR unwrapping through S1, the three
-  subclasses), timed.
+  subclasses), timed;
+- S2, the WLS smoother's line-solve kernel: ``torch.equal`` to its twin,
+  row and column solves, on one line, a one-pixel-wide image, 33x47,
+  720p, a stack of 8 and 70,000 frames (two launches; against the stack
+  in pieces), with and without invalid markers, lambda 2 and 128; timed
+  against the bound and the chain of one line;
+- the post-filters at 384x288 and 1280x720: ``quality_disparity``'s SGM
+  leg (census 7, D = 128 on K2, then the WLS fill on S2) and ASW leg with
+  WLS (K1, then S2), checked against the shift, S2's 6 launches a WLS
+  call counted, what K2, K1 and S2 returned on that path held against
+  their twins (K1 on the whole map at 384x288, on three bands of rows at
+  1280x720), the median equal to the CPU path, and timed by stage;
+- calibration at 1280x720: ten chessboard pairs rendered on the card
+  through a distorted rig, ``chessboardStereo`` on the card recovering
+  it (its detection and BA timed inside that one call), the card's
+  corners equal to the CPU path's, the one-card Gauss-Newton on 16
+  synthetic views, timed.
 
 Every kernel's JSON record carries ``bound_ms``, the least time the card
 could take for the kernel's work at the timed shape: the larger of its
 operations over the float32 peak and its bytes (each input read once,
 each output written once) over the memory rate.
 
-Every phase prints one line; any failed check raises, so the exit code is
-nonzero and no result line is printed. The last two lines are the kernels'
-JSON record and ``{"ok": true, "device": {...}}``.
+Every phase prints one line, then a line gives each phase's wall time;
+any failed check raises, so the exit code is nonzero and no result line
+is printed. The last two lines are the kernels' JSON record and
+``{"ok": true, "device": {...}}``.
 
 Needs a CUDA card, nvcc, g++ and the repository checkout; imports no
 JAX, Pillow or matplotlib.
 """
 
+import contextlib
+import inspect
 import json
 import re
 import statistics
@@ -209,6 +228,29 @@ CASES = [
 def check(cond, msg):
     if not cond:
         raise AssertionError(msg)
+
+
+@contextlib.contextmanager
+def calls_of(module, name):
+    """Within the block, every call of ``module.name`` goes through and is
+    kept in the list this yields, as (its arguments by parameter name,
+    result, seconds on the host clock)."""
+    real = getattr(module, name)
+    bind = inspect.signature(real).bind
+    seen = []
+
+    def spy(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = real(*args, **kwargs)
+        seen.append((bind(*args, **kwargs).arguments, out,
+                     time.perf_counter() - t0))
+        return out
+
+    setattr(module, name, spy)
+    try:
+        yield seen
+    finally:
+        setattr(module, name, real)
 
 
 def pair(h, w, seed=SEED):
@@ -1773,6 +1815,513 @@ def ftp_phase(dev, card, s1_max_err):
     return s1
 
 
+# Phase 21: S2, the WLS line-solve kernel, against its twin, bit for bit:
+# row and column solves on one line, a one-pixel-wide image, 33x47,
+# 1280x720 and a stack of 8 frames, each in two regimes (invalid markers
+# on a noise guide at lambda 2, sigma 8; no markers at lambda 128, sigma
+# 2), lambda_t of the first of 3 iterations; and 70,000 frames of 4x5
+# (past grid y's 65,535: two launches) against the same stack in pieces.
+S2_SHAPES = ((1, 1, 1280), (1, 720, 1), (1, 33, 47), (1, 720, 1280),
+             (8, 96, 128))
+S2_REGIMES = (dict(lam=2.0, sigma=8.0, invalid=0.05),
+              dict(lam=128.0, sigma=2.0, invalid=0.0))
+S2_DEEP = (70_000, 4, 5)
+S2_TIMED = (720, 1280)
+# One line this long is one thread's chain: its time a position is the
+# latency of a forward and a backward step.
+S2_CHAIN = 16_384
+
+
+def s2_inputs(B, H, W, sigma, invalid, dev, seed=SEED):
+    """(conf, wx, wy, u) of a (B, H, W) stack as the smoother builds them:
+    the weights of a noise BGR guide at ``sigma``, disparities around 20
+    with a share ``invalid`` of markers (zero confidence, u = 0 there)."""
+    from simplestereo_tpu_torch.passive import wls
+    rng = np.random.default_rng(seed)
+    d = rng.normal(20, 5, (B, H, W)).astype(np.float32)
+    conf = torch.tensor((rng.random((B, H, W)) >= invalid).astype(
+        np.float32), device=dev)
+    g = torch.tensor(rng.integers(0, 256, (B, H, W, 3), np.uint8),
+                     device=dev)
+    wx, wy = wls._edge_weights(g, sigma)
+    return conf, wx, wy, torch.tensor(d, device=dev) * conf
+
+
+def s2_bound(B, H, W, along_y):
+    """(bound_ms, bound_by) of one S2 solve: conf, w and u read once, u
+    written once; some 20 operations a position (the diagonal and the
+    right-hand side 7, the elimination 6 and two divisions, the back
+    substitution 2)."""
+    nw = B * (H - 1) * W if along_y else B * H * (W - 1)
+    return bound(20 * B * H * W, 4 * (3 * B * H * W + nw))
+
+
+def event_ms(fn):
+    """CUDA-event ms of one call of fn()."""
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    out = fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b), out
+
+
+def s2_phase(dev, card):
+    """Phase 21: S2 torch.equal to its twin on every case; CUDA-event times
+    of kernel and twin at 1280x720 beside the bound and the chain.
+    Returns the largest |kernel - twin| measured."""
+    from simplestereo_tpu_torch import _build
+    from simplestereo_tpu_torch.passive import wls
+
+    n_cases, max_err = 0, 0.0
+    t0 = time.perf_counter()
+
+    def against_twin(conf, w, u, lam_t, along_y, where):
+        nonlocal n_cases, max_err
+        p = wls._solve_plain(conf, w, u, lam_t, along_y)
+        n0 = wls.launches
+        k = wls._solve(conf, w, u, lam_t, along_y)
+        torch.cuda.synchronize()
+        check(wls.launches == n0 + 1, f"S2 {where}: launch not counted")
+        err = (k - p).abs().max().item()
+        max_err = max(max_err, err)
+        check(k.dtype == torch.float32 and torch.equal(k, p),
+              f"S2 {where}: kernel differs from twin, max abs {err:.3g}")
+        n_cases += 1
+        return k
+
+    for B, H, W in S2_SHAPES:
+        for reg in S2_REGIMES:
+            conf, wx, wy, u = s2_inputs(B, H, W, reg["sigma"],
+                                        reg["invalid"], dev)
+            lam_t = wls._lam_schedule(reg["lam"], 3, 1)
+            for along_y, w in ((False, wx), (True, wy)):
+                against_twin(conf, w, u, lam_t, along_y,
+                             f"{B}x{H}x{W} along {'yx'[not along_y]} "
+                             f"lambda {reg['lam']:g}")
+    B, H, W = S2_DEEP
+    conf, wx, wy, u = s2_inputs(B, H, W, 8.0, 0.05, dev)
+    lam_t = wls._lam_schedule(2.0, 3, 1)
+    for along_y, w in ((False, wx), (True, wy)):
+        check(len(wls._plan(B, H, W, along_y)["pieces"]) == 2,
+              "S2 deep stack: not two launches")
+        whole = against_twin(conf, w, u, lam_t, along_y,
+                             f"{B} frames of {W}x{H}")
+        for a, b in ((0, B // 2), (B // 2, B)):
+            part = wls._solve(conf[a:b].contiguous(), w[a:b].contiguous(),
+                              u[a:b].contiguous(), lam_t, along_y)
+            check(torch.equal(whole[a:b], part), f"S2 deep stack along "
+                  f"{'yx'[not along_y]}: frames {a}..{b} differ from the "
+                  "stack in pieces")
+    del conf, wx, wy, u, whole, part
+    cases_s = time.perf_counter() - t0
+
+    h, w = S2_TIMED
+    lam_t = wls._lam_schedule(2.0, 3, 1)
+    ins = [s2_inputs(1, h, w, 8.0, 0.05, dev, seed=i) for i in range(6)]
+    kx, _ = cuda_ms(lambda x: wls._solve(x[0], x[1], x[3], lam_t, False),
+                    ins)
+    ky, _ = cuda_ms(lambda x: wls._solve(x[0], x[2], x[3], lam_t, True),
+                    ins)
+    fgs, _ = cuda_ms(lambda x: wls._fgs(x[3], x[0], x[1], x[2], 2.0, 3),
+                     ins)
+    conf, wx, wy, u = ins[0]
+    px, _ = event_ms(lambda: wls._solve_plain(conf, wx, u, lam_t, False))
+    py, _ = event_ms(lambda: wls._solve_plain(conf, wy, u, lam_t, True))
+    line = s2_inputs(1, 1, S2_CHAIN, 8.0, 0.0, dev)
+    l_ms, _ = cuda_ms(lambda x: wls._solve(x[0], x[1], x[3], lam_t, False),
+                      [line] * 4)
+    step_ns = l_ms * 1e6 / S2_CHAIN
+    bx = s2_bound(1, h, w, False)
+    by = s2_bound(1, h, w, True)
+    shapes = ", ".join(f"{b}x{c}x{d}" for b, c, d in S2_SHAPES)
+    print(f"phase 21 S2 WLS line solve kernel vs twin: torch.equal on "
+          f"{n_cases} cases ({shapes}, rows and columns, lambda 2 with 5% markers and 128; "
+          f"{S2_DEEP[0]} frames of {S2_DEEP[2]}x{S2_DEEP[1]} in two "
+          f"launches, equal to the stack in pieces), max |kernel - twin| "
+          f"{max_err:g}, {cases_s:.1f} s | {w}x{h}: row solve {kx:.4f} ms, "
+          f"column solve {ky:.4f} ms, 3 iterations (6 solves) {fgs:.3f} "
+          f"ms; twin {px:.1f} / {py:.1f} ms; bound {bx[0]:.4f} / "
+          f"{by[0]:.4f} ms ({bx[1]}); chain: one line of {S2_CHAIN} "
+          f"positions {l_ms:.3f} ms = {step_ns:.1f} ns a position, so "
+          f"{w * step_ns * 1e-6:.4f} / {h * step_ns * 1e-6:.4f} ms for a "
+          f"row / column | registers/spill bytes: "
+          f"{ptxas_summary(_build.compile_log('thomas_kernel'))} | {card}")
+    return max_err
+
+
+# Phase 22: the post-filter paths at full width on pair() (noise, true
+# shift 5): quality_disparity's SGM leg (census 7, D = 128 on K2, LR check,
+# uniqueness 10, then the WLS fill on S2) and its ASW leg with WLS (win 35,
+# d 0..16 on K1, then S2), and the median (3 and 5) on the SGM map; at
+# 384x288 and 1280x720.
+POST_SHAPES = ((288, 384), (720, 1280))
+POST_SGM = dict(min_disp=0, max_disp=127, matcher="sgm")
+POST_ASW = dict(matcher="asw", wls_lambda=4.0)
+POST_BAR = 0.95
+POST_PAD = 17  # the ASW window's half width; the SGM leg's is smaller
+
+
+def postfilter_phase(dev, card, s2_max_err):
+    """Phase 22. Returns S2's kernels-line entry: its launches on the SGM
+    leg's main path at 1280x720 (6: a row and a column solve in each of 3
+    iterations), and the kernel against the twin, and both timed, on the
+    first solve that path gave it."""
+    from simplestereo_tpu_torch.passive import (
+        asw_cuda, asw_disparity, median_disparity, quality_disparity, sgm,
+        sgm_cuda, wls)
+    from simplestereo_tpu_torch.passive.presets import _gray_guide
+
+    entry = None
+    for h, w in POST_SHAPES:
+        left, right = pair(h, w)
+        # The main path. Each kernel's calls on it are kept, to be held
+        # against the twins after the counts are read.
+        with calls_of(wls, "_solve") as s2_calls, \
+                calls_of(sgm, "aggregate") as k2_calls:
+            wls.launches = sgm_cuda.launches = 0
+            d_sgm = quality_disparity(left, right, device=dev, **POST_SGM)
+            n_sgm = (wls.launches, sgm_cuda.launches)
+        with calls_of(asw_cuda, "_asw_pass") as k1_calls:
+            wls.launches = asw_cuda.launches = 0
+            d_asw = quality_disparity(left, right, device=dev, **POST_ASW)
+            n_asw = (wls.launches, asw_cuda.launches)
+        check(n_sgm == (6, 1), f"{w}x{h} SGM leg: (S2, K2) launches {n_sgm}"
+              ", expected (6, 1)")
+        check(n_asw == (6, 1), f"{w}x{h} ASW leg: (S2, K1) launches {n_asw}"
+              ", expected (6, 1)")
+        a, S, _ = k2_calls[0]
+        C = a["C"]
+        twin = sgm_cuda._aggregate(C, float(a["P1"]), float(a["P2"]),
+                                   a["paths"])
+        check(torch.equal(S, twin), f"{w}x{h} SGM leg: K2's S on the "
+              f"preset's volume {tuple(C.shape)} differs from the twin, max "
+              f"abs {(S - twin).abs().max().item():.3g}")
+        del a, C, S, twin, k2_calls
+        a, out, _ = k1_calls[0]
+        k1_err = k1_on_path(a.pop("planes"), a, out, f"{w}x{h} ASW leg")
+        del a, out, k1_calls
+        share = {}
+        for name, d in (("sgm", d_sgm), ("asw", d_asw)):
+            check(d.shape == (h, w) and d.dtype == np.float32
+                  and np.isfinite(d).all(),
+                  f"{w}x{h} {name} leg: not a dense float32 map")
+            inner = d[POST_PAD:-POST_PAD, 16 + POST_PAD:-POST_PAD]
+            share[name] = float((np.abs(inner - SHIFT) <= 0.5).mean())
+            check(share[name] >= POST_BAR, f"{w}x{h} {name} leg: only "
+                  f"{share[name]:.2%} of the interior within 0.5 px of "
+                  f"{SHIFT}")
+        for size in (3, 5):
+            got = median_disparity(torch.tensor(d_sgm, device=dev), size)
+            cpu = median_disparity(torch.tensor(d_sgm), size)
+            check(torch.equal(got.cpu(), cpu),
+                  f"{w}x{h} median {size}: card differs from the CPU path")
+
+        m = sgm.StereoSGM(minDisparity=0, numDisparities=128, blockSize=3,
+                          P1=120, P2=480, uniquenessRatio=10,
+                          disp12MaxDiff=1, costMethod="census",
+                          censusWindow=7, device=dev)
+
+        def stages(leg, l, r):
+            t = [time.perf_counter()]
+            t1 = torch.tensor(l, device=dev)
+            t2 = torch.tensor(r, device=dev)
+            if leg == "sgm":
+                d = m.compute(t1, t2)
+            else:
+                d = asw_disparity(t1, t2, win_size=35, min_disp=0,
+                                  max_disp=16, gamma_c=15.0, gamma_p=17.5,
+                                  consistent=True).to(torch.float32)
+            torch.cuda.synchronize()
+            t.append(time.perf_counter())
+            if leg == "sgm":
+                f = wls.wls_filter_disparity(
+                    d, _gray_guide(t1), lambda_=2.0, sigma_color=8.0,
+                    invalid=-16, disp_scale=1 / 16.0)
+            else:
+                f = wls.wls_filter_disparity(d, _gray_guide(t1), lambda_=4.0,
+                                             sigma_color=2.0)
+            torch.cuda.synchronize()
+            t.append(time.perf_counter())
+            median_disparity(f, 3)
+            torch.cuda.synchronize()
+            t.append(time.perf_counter())
+            return [(b - a) * 1e3 for a, b in zip(t, t[1:])]
+
+        ins = [(np.roll(left, i, axis=0), np.roll(right, i, axis=0))
+               for i in range(5)]
+        st, e2e = {}, {}
+        for leg, kw in (("sgm", POST_SGM), ("asw", POST_ASW)):
+            runs = [stages(leg, l, r) for l, r in ins][1:]
+            st[leg] = [statistics.median(x[i] for x in runs)
+                       for i in range(3)]
+            e2e[leg], n = host_ms(
+                lambda l, r, kw=kw: quality_disparity(l, r, device=dev, **kw),
+                ins)
+        print(f"phase 22 post-filters {w}x{h}: quality_disparity sgm (census "
+              f"7, D=128, LR, uniqueness 10, WLS fill) {share['sgm']:.2%} "
+              f"and asw (win 35, d 0..16, consistent, WLS lambda 4) "
+              f"{share['asw']:.2%} of the interior within 0.5 px of "
+              f"{SHIFT}, dense; launches (S2, K2) {n_sgm}, (S2, K1) {n_asw}; "
+              f"K2's S on the path torch.equal to the twin, K1's pass vs "
+              f"the twin on {k1_err[3]} max abs err {k1_err[0]:.3g} rel "
+              f"{k1_err[1]:.3g} map mismatch {k1_err[2]:.4%}; "
+              f"median 3 and 5 equal to the CPU path | host clock, median "
+              f"of {n} distinct frames: sgm leg matcher {st['sgm'][0]:.2f} "
+              f"ms, WLS {st['sgm'][1]:.2f}, median {st['sgm'][2]:.2f}, "
+              f"end to end {e2e['sgm']:.2f} ms; asw leg matcher "
+              f"{st['asw'][0]:.2f}, WLS {st['asw'][1]:.2f}, end to end "
+              f"{e2e['asw']:.2f} ms | {card}")
+        if (h, w) == S2_TIMED:
+            a, main, _ = s2_calls[0]
+            entry = s2_main_path(**a, main=main, launches=n_sgm[0],
+                                 s2_max_err=s2_max_err)
+    return entry
+
+
+# Rows of each band of a 1280x720 K1 pass held against the twin on the
+# preset's path (the twin's time grows with the rows it is given).
+K1_BAND = 24
+
+
+def k1_on_path(planes, kw, out, where):
+    """K1's pass on a preset's own planes (``out``, what the path's launch
+    returned) against the twin under compare_pass's gates: the whole map
+    up to 384x288; at larger sizes three bands of K1_BAND rows (top,
+    middle, bottom), the twin run on each band and its window's halo (a
+    pixel's cost reads only its window, so the band's rows are the whole
+    map's). Returns (max abs err, max rel err, worst map mismatch, what
+    was compared)."""
+    from simplestereo_tpu_torch.passive import asw_cuda
+    H, W = kw["H"], kw["W"]
+    pad = kw["win_size"] // 2
+    if H * W <= 288 * 384:
+        bands, what = [(0, H)], "the whole map"
+    else:
+        mid = H // 2 - K1_BAND // 2
+        bands = [(0, K1_BAND), (mid, mid + K1_BAND), (H - K1_BAND, H)]
+        what = f"rows {bands}"
+    axes = (2, 1, 1, 2)  # the row axis of cost, dispL, dispR, csub
+
+    def rows(ts, r0, r1):
+        return tuple(None if t is None else t.narrow(a, r0, r1 - r0)
+                     for t, a in zip(ts, axes))
+
+    worst = [0.0, 0.0, 0.0]
+    for r0, r1 in bands:
+        a, b = max(0, r0 - pad), min(H, r1 + pad)
+        p = asw_cuda._asw_pass_plain(
+            planes[:, :, a:b + 2 * pad].contiguous(), **dict(kw, H=b - a))
+        errs = compare_pass(rows(out, r0, r1), rows(p, r0 - a, r1 - a),
+                            kw["min_disp"], f"{where} K1 rows {r0}..{r1}")
+        worst = [max(x, y) for x, y in zip(worst, errs)]
+    return (*worst, what)
+
+
+def s2_main_path(conf, w, u, lam_t, along_y, main, launches, s2_max_err):
+    """S2 on the first solve the SGM leg's WLS gave it at 1280x720 (its
+    inputs and ``main``, what that launch returned): ``main`` and a new
+    launch, each torch.equal to the twin on the same inputs; CUDA-event
+    times of kernel and twin there."""
+    from simplestereo_tpu_torch.passive import wls
+
+    plain_ms, twin = event_ms(
+        lambda: wls._solve_plain(conf, w, u, lam_t, along_y))
+    again = wls._solve(conf, w, u, lam_t, along_y)
+    err = max((main - twin).abs().max().item(),
+              (again - twin).abs().max().item())
+    check(torch.equal(main, twin) and torch.equal(again, twin),
+          f"S2 on the SGM leg's solve {tuple(conf.shape)}: kernel differs "
+          f"from twin, max abs {err:.3g}")
+    ms, _ = cuda_ms(lambda x: wls._solve(conf, w, u, lam_t, along_y),
+                    [None] * 6)
+    bound_ms, bound_by = s2_bound(*conf.shape, along_y)
+    return {"name": "thomas_solve", "route": "cuda",
+            "source": "simplestereo_tpu_torch/csrc/thomas_kernel.cu",
+            "replaces": "simplestereo_tpu/passive/wls.py:32",
+            "launches": launches, "max_abs_err": max(err, s2_max_err),
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None}
+
+
+# Phase 23: calibration at 1280x720. Ten chessboard pairs (7x6 inner
+# corners, squares of 40 units) rendered on the card, 3x3 supersampled
+# and box-filtered as tests/test_procam.py renders them, through phase
+# 16's seeded rig (distortion on both cameras); board poses tilted up to
+# ~0.35 rad, 700-1300 units away, the whole board inside both views.
+CAL_CB = (7, 6)
+CAL_SQ = 40.0
+CAL_VIEWS = 10
+CAL_SCALE = 3
+CAL_SEED = 23
+
+
+def calib_rays(K, dist, res, dev):
+    """(N, 3) float64 rays (z = 1), on ``dev``, of every supersampled pixel
+    of a distorted camera: subpixel i at pixel (i + 0.5) / scale - 0.5."""
+    from simplestereo_tpu_torch.geometry import undistort_points
+    w, h = res
+    s = CAL_SCALE
+    xs = (torch.arange(w * s, dtype=torch.float64, device=dev) + 0.5) / s - 0.5
+    ys = (torch.arange(h * s, dtype=torch.float64, device=dev) + 0.5) / s - 0.5
+    v, u = torch.meshgrid(ys, xs, indexing="ij")
+    xy = undistort_points(torch.stack([u, v], -1).reshape(-1, 2), K, dist)
+    return torch.cat([xy, torch.ones_like(xy[:, :1])], 1)
+
+
+def render_board(rays, Rb, tb, res):
+    """The board (pose Rb, tb in the camera's frame) seen along ``rays``:
+    each ray meets its plane, the board's (x, y) there picks a dark or a
+    light square (20 or 235; light outside the board), and each pixel is
+    the mean of its subpixels, truncated to uint8."""
+    Rb = torch.as_tensor(Rb, device=rays.device)
+    tb = torch.as_tensor(tb, device=rays.device)
+    n = Rb[:, 2]
+    s = (n * tb).sum() / (rays * n).sum(1)
+    X = s[:, None] * rays - tb
+    bx = (X * Rb[:, 0]).sum(1)
+    by = (X * Rb[:, 1]).sum(1)
+    cols, rows = CAL_CB
+    inside = ((bx > -CAL_SQ) & (bx < cols * CAL_SQ) & (by > -CAL_SQ)
+              & (by < rows * CAL_SQ) & (s > 0))
+    dark = inside & ((torch.floor(bx / CAL_SQ) + torch.floor(by / CAL_SQ))
+                     % 2 == 0)
+    img = torch.where(dark, 20.0, 235.0).to(torch.float64)
+    w, h = res
+    img = img.reshape(h, CAL_SCALE, w, CAL_SCALE).mean((1, 3))
+    return img.to(torch.uint8).cpu().numpy()
+
+
+def calib_poses(rig_args):
+    """CAL_VIEWS board poses (R, t) in camera 1's frame whose whole board
+    (with its outer squares) projects inside both distorted views with a
+    margin of 30 px."""
+    from simplestereo_tpu_torch.calibration import ba
+    res1, res2, K1, K2, d1, d2, R, T = rig_args
+    T = T.ravel()
+    cols, rows = CAL_CB
+    c = np.array([[-CAL_SQ, -CAL_SQ, 0], [cols * CAL_SQ, -CAL_SQ, 0],
+                  [-CAL_SQ, rows * CAL_SQ, 0],
+                  [cols * CAL_SQ, rows * CAL_SQ, 0]])
+
+    def inside(K, d, Rc, tc, res):
+        uv = ba.project_points(c, ba._rodrigues_inv(Rc), tc, K[0, 0],
+                               K[1, 1], K[0, 2], K[1, 2], d)
+        return (uv.min() > 30 and uv[:, 0].max() < res[0] - 30
+                and uv[:, 1].max() < res[1] - 30)
+
+    rng = np.random.default_rng(CAL_SEED)
+    mid = -R.T @ T / 2  # halfway between the two centres
+    poses = []
+    while len(poses) < CAL_VIEWS:
+        Rb = ba._rodrigues(rng.normal(0, 0.35, 3))
+        z = rng.uniform(700, 1300)
+        tb = np.array([mid[0] - (cols - 1) * CAL_SQ / 2 + rng.normal(0, 60),
+                       -(rows - 1) * CAL_SQ / 2 + rng.normal(0, 50), z])
+        if inside(K1, d1, Rb, tb, res1) and inside(K2, d2, R @ Rb,
+                                                   R @ tb + T, res2):
+            poses.append((Rb, tb))
+    return poses
+
+
+def calibration_phase(dev, card):
+    """Phase 23: chessboardStereo on ten rendered 1280x720 pairs on the
+    card (recovery within tests/test_calibration.py's bounds), the corners
+    of the card's corner_response against the CPU path's, and the one-card
+    Gauss-Newton on 16 synthetic views (within its test's bounds); times."""
+    from simplestereo_tpu_torch import calibration as cal
+    from simplestereo_tpu_torch.calibration import ba, chessboard, sharded
+
+    t0 = time.perf_counter()
+    args = random_rig_args()
+    res1, res2, K1, K2, d1, d2, R, T = args
+    poses = calib_poses(args)
+    rays1 = calib_rays(K1, d1, res1, dev)
+    rays2 = calib_rays(K2, d2, res2, dev)
+    pairs = [(render_board(rays1, Rb, tb, res1),
+              render_board(rays2, R @ Rb, R @ tb + T.ravel(), res2))
+             for Rb, tb in poses]
+    del rays1, rays2
+    torch.cuda.empty_cache()
+    render_s = time.perf_counter() - t0
+
+    # One pass, its stages timed inside it: detection (the card's
+    # likelihood, host refinement and ordering) and the host BA.
+    t0 = time.perf_counter()
+    with calls_of(cal, "find_chessboard_corners") as found, \
+            calls_of(ba, "stereo_calibrate") as bas:
+        rig = cal.chessboardStereo(pairs, CAL_CB, CAL_SQ, device=dev)
+    stereo_s = time.perf_counter() - t0
+    r_err = float(np.abs(np.asarray(rig.R) - R).max())
+    t_err = float(np.abs(np.asarray(rig.T).ravel() - T.ravel()).max())
+    check(rig.reprojectionError < 0.12 and r_err < 2e-3 and t_err < 0.5,
+          f"chessboardStereo 1280x720: RMS {rig.reprojectionError:.4f}, "
+          f"|R - R_true| {r_err:.3g}, |T - T_true| {t_err:.3g}")
+    check(rig.device == dev, "chessboardStereo: rig not on the card")
+    check(len(found) == 2 * len(pairs) and len(bas) == 1,
+          f"chessboardStereo: {len(found)} detections, {len(bas)} BAs")
+    detect_ms = statistics.median(c[2] for c in found) * 1e3
+    ba_s = bas[0][2]
+    used = sum(found[2 * i][1][0] and found[2 * i + 1][1][0]
+               for i in range(len(pairs)))
+    check(used >= CAL_VIEWS - 2, f"boards found in both views of only "
+          f"{used} of {CAL_VIEWS} pairs")
+    worst = 0.0
+    for i in (0, len(pairs) - 1):
+        for k in range(2):
+            a, (f_dev, c_dev), _ = found[2 * i + k]
+            f, c = chessboard.find_chessboard_corners(a["gray"], CAL_CB,
+                                                      device="cpu")
+            check(f == f_dev, f"pair {i}: found on one path only")
+            if f:
+                worst = max(worst, float(np.abs(c - c_dev).max()))
+    check(worst <= 1e-6, f"corners on the card vs the CPU path: {worst:.3g}")
+    g = torch.tensor(pairs[0][0].astype(np.float32), device=dev)
+    resp_ms, _ = cuda_ms(lambda x: chessboard.corner_response(x), [g] * 6)
+
+    # The one-card Gauss-Newton: tests/test_calibration.py's 16 views.
+    rng = np.random.default_rng(11)
+    K = np.array([[800., 0, 640], [0, 790, 360], [0, 0, 1]])
+    dist = np.array([-0.12, 0.03, 0.001, -0.0005, 0.01])
+    xx, yy = np.meshgrid(np.arange(7), np.arange(6))
+    obj = np.stack([xx.ravel() * 30., yy.ravel() * 30., np.zeros(42)], 1)
+    imgs = []
+    for _ in range(16):
+        rvec = rng.normal(0, 0.25, 3)
+        tvec = np.array([rng.normal(-90, 30), rng.normal(-75, 30),
+                         rng.normal(600, 100)])
+        pts = ba.project_points(obj, rvec, tvec, K[0, 0], K[1, 1], K[0, 2],
+                                K[1, 2], dist)
+        imgs.append(pts + rng.normal(0, 0.1, pts.shape))
+    Hs = [ba._homography_dlt(obj[:, :2], i) for i in imgs[:6]]
+    fx, fy, cx, cy = ba._zhang_intrinsics(Hs, (1280, 720))
+    K0 = np.array([[fx, 0, cx], [0, fy, cy], [0, 0, 1.0]])
+    gn = lambda n: sharded.calibrate_camera_sharded(
+        np.tile(obj[None], (16, 1, 1)), np.stack(imgs), K0, np.zeros(5),
+        iterations=n, device=dev)
+    gn(1)  # warm
+    t0 = time.perf_counter()
+    rms, Ke, de, ps = gn(25)
+    gn_ms = (time.perf_counter() - t0) * 1e3
+    k_err = float(np.abs(Ke - K).max())
+    check(rms < 0.25 and k_err < 5.0 and ps.shape == (16, 6),
+          f"one-card Gauss-Newton: RMS {rms:.4f}, |K - K_true| {k_err:.3g}")
+    print(f"phase 23 calibration {res1[0]}x{res1[1]}: {len(pairs)} pairs "
+          f"({CAL_CB[0]}x{CAL_CB[1]} corners, 3x3 supersampled, phase 16's "
+          f"distorted rig) rendered on the card in {render_s:.2f} s, "
+          f"boards in both views of {used}; chessboardStereo RMS "
+          f"{rig.reprojectionError:.4f}, |R - R_true| {r_err:.3g}, "
+          f"|T - T_true| {t_err:.3g} in {stereo_s:.2f} s; "
+          f"corners of the card's likelihood vs the CPU path max "
+          f"{worst:.3g} px | corner_response {resp_ms:.3f} ms (CUDA "
+          f"events); inside chessboardStereo, detection {detect_ms:.1f} ms "
+          f"an image (median of {len(found)}, host clock), stereo BA "
+          f"{ba_s * 1e3:.0f} ms (host) | one-card Gauss-Newton, "
+          f"16 views, 25 iterations: RMS {rms:.4f}, |K - K_true| "
+          f"{k_err:.3g}, {gn_ms:.0f} ms | {card}")
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False: needs a "
@@ -1780,6 +2329,7 @@ def main():
     from simplestereo_tpu_torch import _build
     from simplestereo_tpu_torch.passive import StereoASW, asw_cuda
 
+    start = time.perf_counter()
     dev = torch.device("cuda", 0)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1793,7 +2343,7 @@ def main():
 
     t0 = time.perf_counter()
     names = ["asw_kernel", "sgm_kernel", "gsw_kernel", "rotate_kernel",
-             "iir_unwrap_kernel"]
+             "iir_unwrap_kernel", "thomas_kernel"]
     _build.build(names + list(_build.HOST_SOURCES))
     for name in names + list(_build.HOST_SOURCES):
         _build.load_library(name)
@@ -2003,23 +2553,33 @@ def main():
         "bound_by": bound_by, "library_ms": None}
     del m
     torch.cuda.empty_cache()
-    sgm_entry = sgm_phases(dev, card)
-    torch.cuda.empty_cache()
-    gsw_entry = gsw_phases(dev, card)
-    torch.cuda.empty_cache()
-    rotate_entry = rotate_phase(dev, card)
-    torch.cuda.empty_cache()
-    pts, img = pipeline_phase(dev, card)
-    ply_phase(card, pts, img)
+    walls = {"1-6": time.perf_counter() - start}
+
+    def timed(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.empty_cache()
+        walls[name] = time.perf_counter() - t
+        return out
+
+    sgm_entry = timed("7-10", sgm_phases, dev, card)
+    gsw_entry = timed("11-14", gsw_phases, dev, card)
+    rotate_entry = timed("15", rotate_phase, dev, card)
+    pts, img = timed("16", pipeline_phase, dev, card)
+    timed("17", ply_phase, card, pts, img)
     del pts, img
-    s1_max_err = iir_phase(dev, card)
-    torch.cuda.empty_cache()
-    graycode_phase(dev, card)
-    torch.cuda.empty_cache()
-    iir_entry = ftp_phase(dev, card, s1_max_err)
+    s1_max_err = timed("18", iir_phase, dev, card)
+    timed("19", graycode_phase, dev, card)
+    iir_entry = timed("20", ftp_phase, dev, card, s1_max_err)
+    s2_max_err = timed("21", s2_phase, dev, card)
+    s2_entry = timed("22", postfilter_phase, dev, card, s2_max_err)
+    timed("23", calibration_phase, dev, card)
+    print("phase wall times (host clock, s, build included in 1-6): "
+          + ", ".join(f"{k} {v:.1f}" for k, v in walls.items())
+          + f"; total {time.perf_counter() - start:.1f} | {card}")
 
     print(json.dumps({"kernels": [asw_entry, sgm_entry, gsw_entry,
-                                  rotate_entry, iir_entry]}))
+                                  rotate_entry, iir_entry, s2_entry]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

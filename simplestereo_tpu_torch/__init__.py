@@ -14,8 +14,9 @@ numpy, as in the JAX package.
 
 Every Pallas kernel of the JAX package becomes a hand-written CUDA kernel
 for ``sm_90a`` (sources under ``csrc/``, built with ``nvcc`` at first use,
-see :mod:`._build`), and so does the IIR unwrapping scan of
-:mod:`.unwrapping`. Beside each kernel lives its plain PyTorch twin: the
+see :mod:`._build`), and so do the IIR unwrapping scan of
+:mod:`.unwrapping` and the WLS smoother's line solves
+(:mod:`.passive.wls`). Beside each kernel lives its plain PyTorch twin: the
 CPU path, and the version the kernel is checked against on the card. Host
 C++ (the PLY writer, the PNG row filters) lives under ``native/`` and is
 built with ``g++`` at first use.
@@ -41,6 +42,7 @@ from . import imgio
 from . import unwrapping
 from . import active
 from . import native
+from . import calibration
 from ._device import resolve_device
 
 __all__ = [
@@ -60,5 +62,6 @@ __all__ = [
     "unwrapping",
     "active",
     "native",
+    "calibration",
     "resolve_device",
 ]

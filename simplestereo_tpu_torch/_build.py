@@ -20,7 +20,9 @@ The sources, one per TPU kernel of the JAX package:
 - ``rotate_kernel.cu``: per-plane dynamic roll (K4, the
   ``benchmarks/probe_dynamic_rotate.py`` probe);
 - ``iir_unwrap_kernel.cu``: the IIR phase-unwrapping recursion (S1, the
-  ``lax.scan`` of ``simplestereo_tpu.unwrapping._iir_unwrap``).
+  ``lax.scan`` of ``simplestereo_tpu.unwrapping._iir_unwrap``);
+- ``thomas_kernel.cu``: the tridiagonal line solves of the WLS smoother
+  (S2, the ``lax.scan``s of ``simplestereo_tpu.passive.wls._thomas_rows``).
 
 The host sources are built the same way with ``g++`` (``HOST_SOURCES``):
 ``native/_ply.cpp``, the PLY writer and parser, and ``native/_png.cpp``,
@@ -90,6 +92,11 @@ _SIGNATURES = {
         # stream
         "iir_unwrap": ([_P] * 3 + [_I] * 2 + [_D] + [_I] * 5 + [_P], _I),
         "iir_error_string": ([_I], ctypes.c_char_p),
+    },
+    "thomas_kernel": {
+        # conf, w, u, out, work, B, H, W, along_y, lam, eps, device, stream
+        "thomas_solve": ([_P] * 5 + [_I] * 4 + [_F] * 2 + [_I, _P], _I),
+        "thomas_error_string": ([_I], ctypes.c_char_p),
     },
     "ply": {
         # path, header, header_len, xyz, n, mode, rgb, vals, as_int,

@@ -7,7 +7,10 @@ Dense passive stereo matching, PyTorch port of
 kernel (:mod:`.asw_cuda`), with the plain twin (:mod:`.asw_ref`) as the
 CPU path and oracle, the SGM matcher (:mod:`.sgm`) on its path
 aggregation kernel (:mod:`.sgm_cuda`), and the GSW matcher (:mod:`.gsw`,
-SD and MI costs) on its support-weight kernel (:mod:`.gsw_cuda`).
+SD and MI costs) on its support-weight kernel (:mod:`.gsw_cuda`), and the
+post-filters: the median (:mod:`.postfilter`), the WLS smoother
+(:mod:`.wls`) on its line-solve kernel S2, and the one-call preset
+(:mod:`.presets`).
 """
 
 import numpy as np
@@ -21,6 +24,9 @@ from .sgm import StereoSGM, StereoSGBM_create, filter_speckles
 from .gsw import (MI_AUTO_THRESHOLD, StereoGSW, gsw_disparity,
                   gsw_disparity_batch, radiometric_divergence,
                   resolve_cost_method)
+from .postfilter import median_disparity
+from .wls import fast_global_smoother, wls_filter_disparity
+from .presets import quality_disparity
 
 
 class StereoASW:
@@ -120,4 +126,8 @@ __all__ = [
     "radiometric_divergence",
     "resolve_cost_method",
     "MI_AUTO_THRESHOLD",
+    "median_disparity",
+    "fast_global_smoother",
+    "wls_filter_disparity",
+    "quality_disparity",
 ]

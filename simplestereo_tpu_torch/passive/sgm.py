@@ -400,20 +400,24 @@ class StereoSGM:
                                self.speckleWindowSize, self.speckleRange * 16)
 
     def compute(self, img1, img2, subpixel=True):
-        """(H, W) int16 numpy disparity x16 of an (H, W) gray or (H, W, 3)
-        BGR numpy pair, referred to img1."""
-        img1 = np.ascontiguousarray(img1)
-        img2 = np.ascontiguousarray(img2)
-        if img1.shape != img2.shape or img1.ndim not in (2, 3):
+        """(H, W) int16 disparity x16 of an (H, W) gray or (H, W, 3) BGR
+        pair, referred to img1. Numpy arrays run on the matcher's device
+        and give numpy; tensors run on img1's device and give a tensor
+        there."""
+        is_tensor = isinstance(img1, torch.Tensor)
+        if is_tensor:
+            t1, t2 = img1, torch.as_tensor(img2, device=img1.device)
+        else:
+            t1 = torch.tensor(np.ascontiguousarray(img1), device=self.device)
+            t2 = torch.tensor(np.ascontiguousarray(img2), device=self.device)
+        if t1.shape != t2.shape or t1.dim() not in (2, 3):
             raise ValueError("Images must be (H, W) or (H, W, 3) with "
                              "identical shapes!")
-        out = _sgm_disparity(
-            torch.tensor(img1, device=self.device),
-            torch.tensor(img2, device=self.device),
-            **self._kwargs(subpixel)).cpu().numpy()
-        if self.speckleWindowSize > 0:
-            out = self._speckles(out)
-        return out
+        out = _sgm_disparity(t1, t2, **self._kwargs(subpixel))
+        if self.speckleWindowSize == 0:
+            return out if is_tensor else out.cpu().numpy()
+        host = self._speckles(out.cpu().numpy())
+        return torch.as_tensor(host, device=out.device) if is_tensor else host
 
     def computeBatch(self, imgs1, imgs2, subpixel=True):
         """Batched :meth:`compute`: (B, H, W[, 3]) stacks -> (B, H, W).

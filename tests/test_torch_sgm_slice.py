@@ -93,6 +93,19 @@ def test_stereo_sgm_options_match_jax(subpixel):
     assert (got == want).mean() >= AGREE
 
 
+@pytest.mark.parametrize("speckle", [0, 50])
+def test_compute_on_tensors_equals_numpy(speckle):
+    """A tensor pair runs on its own device and gives the numpy path's map
+    as an int16 tensor there, with and without the speckle filter."""
+    img1, img2 = _pair(23, 24, 40)
+    m = tss.passive.StereoSGM(minDisparity=0, numDisparities=8, blockSize=3,
+                              uniquenessRatio=10, speckleWindowSize=speckle,
+                              speckleRange=1, device="cpu")
+    got = m.compute(torch.tensor(img1), torch.tensor(img2))
+    assert isinstance(got, torch.Tensor) and got.dtype == torch.int16
+    np.testing.assert_array_equal(got.numpy(), m.compute(img1, img2))
+
+
 @pytest.mark.parametrize("paths", [4, 8])
 def test_stereo_sgm_recovers_known_shift(paths):
     """The bar of tests/test_passive_asw.py::test_sgm_recovers_known_shift."""
