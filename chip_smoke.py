@@ -72,7 +72,21 @@ all started together) and drives the port's main paths:
   through a distorted rig, ``chessboardStereo`` on the card recovering
   it (its detection and BA timed inside that one call), the card's
   corners equal to the CPU path's, the one-card Gauss-Newton on 16
-  synthetic views, timed.
+  synthetic views, timed;
+- the streaming stereo service at full width: the port's VideoWriter
+  writes 12 side-by-side frames (left | right, band-limited noise at its
+  own shift in 4..14) at 1280x720 and 384x288 as DIB and as MJPG
+  (quality 90) AVIs; one ``utils.Capture`` a file feeds batches of 8
+  pairs to ``StereoASW(35, 14, 4, 15, 17.5, consistent=True).computeBatch``
+  on the ASW kernel, a warm batch and 4 under ``profiling.trace`` with the
+  grab / upload / match / readback ranges: each frame's map at its shift
+  (DIB; MJPG against DIB), the kernel against its twin on the first
+  1280x720 batch, the trace's kernels and ranges, the device's busy
+  share, throughput, memory, host-clock stage times and computeBatch with
+  the grab thread stopped;
+- the native JPEG codec at 1280x720 (round trip within the JAX MJPG
+  test's bar, ms a frame each way) and the port's
+  ``examples/202_streaming_pipeline.py`` on the card.
 
 Every kernel's JSON record carries ``bound_ms``, the least time the card
 could take for the kernel's work at the timed shape: the larger of its
@@ -85,7 +99,8 @@ is printed. The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.
 
 Needs a CUDA card, nvcc, g++ and the repository checkout; imports no
-JAX, Pillow or matplotlib.
+JAX, Pillow or matplotlib. Phase 24 writes its videos and traces under
+the checkout's ``build/chip_smoke_stream/`` and deletes them at the end.
 """
 
 import contextlib
@@ -2322,6 +2337,304 @@ def calibration_phase(dev, card):
           f"{k_err:.3g}, {gn_ms:.0f} ms | {card}")
 
 
+STREAM_SHAPES = ((720, 1280), (288, 384))
+STREAM_CODECS = ("DIB ", "MJPG")
+STREAM_FRAMES = 12
+STREAM_B = 8
+STREAM_TIMED = 4     # batches under the trace, after one warm batch
+STREAM_BAR = 0.90    # DIB: each frame's share of the interior at its shift
+STREAM_MJPG = 0.90   # MJPG: at least this times the DIB stream's share
+STREAM_QUALITY = 90
+STREAM_SEED = 24
+STREAM_RANGES = ("grab", "upload", "match", "readback")
+K1_KERNELS = ("asw_cost_tile_kernel", "asw_cost_l1_kernel",
+              "asw_select_kernel")
+
+
+def stream_dir():
+    """A fresh working directory under the checkout's build/ (gitignored)."""
+    import pathlib
+    import shutil
+    from simplestereo_tpu_torch import _build
+    d = pathlib.Path(_build.BUILD_DIR).parent / "chip_smoke_stream"
+    shutil.rmtree(d, ignore_errors=True)
+    d.mkdir(parents=True)
+    return d
+
+
+def stream_frames(h, w, seed):
+    """STREAM_FRAMES side-by-side frames (h, 2w, 3), left | right: a pair
+    of band-limited noise (3x3 box-blurred), the right half the left
+    rolled along its rows by the frame's own shift in 4..14. Returns the
+    frames, their left halves and their shifts."""
+    rng = np.random.default_rng(seed)
+    shifts = rng.integers(MAIN["minDisparity"], MAIN["maxDisparity"] + 1,
+                          STREAM_FRAMES)
+    frames, lefts = [], []
+    for s in shifts:
+        n = rng.integers(0, 256, (h + 2, w + 2, 3)).astype(np.float32)
+        left = np.rint(sum(n[dy:dy + h, dx:dx + w] for dy in range(3)
+                           for dx in range(3)) / 9).astype(np.uint8)
+        frames.append(np.concatenate([left, np.roll(left, -int(s), axis=1)],
+                                     axis=1))
+        lefts.append(left)
+    return frames, np.stack(lefts), shifts
+
+
+def wait_frame(cap, timeout=10.0):
+    """cap.get() once a frame has arrived (as example 202 waits)."""
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < timeout:
+        f = cap.get()
+        if f is not None:
+            return f
+        time.sleep(0.001)
+    raise AssertionError("Capture gave no frame in 10 s")
+
+
+def stream_scores(L, disp, lefts, shifts, where):
+    """Each grabbed pair's written frame (the nearest written left half,
+    mean |d| on a 4x4-strided grid) and the share of its map's interior
+    at that frame's shift; raises when a frame is not clearly nearer one
+    written frame than every other (at most half the second distance)."""
+    pad = MAIN["winSize"] // 2
+    cand = lefts[:, ::4, ::4].astype(np.int16)
+    out = []
+    for f, d in zip(L, disp):
+        dist = np.abs(cand - f[::4, ::4].astype(np.int16)).mean(
+            axis=(1, 2, 3))
+        k, k2 = np.argsort(dist)[:2]
+        check(dist[k] <= 0.5 * dist[k2], f"{where}: a grabbed frame is "
+              f"{dist[k]:.1f} from the nearest written frame and "
+              f"{dist[k2]:.1f} from the next")
+        inner = d[pad:-pad, MAIN["maxDisparity"] + pad:-pad]
+        out.append((k, float((inner == shifts[k]).mean())))
+    return out
+
+
+def trace_summary(logdir, wall_s, batches):
+    """Parse the trace's JSON: K1's kernels and the four ranges must be in
+    it. Returns (K1 device ms a batch, busy share = union of device
+    events over the traced wall time, host ms a batch of each range)."""
+    from simplestereo_tpu_torch import profiling
+    with open(logdir / profiling.PERFETTO_FILE) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("ph") == "X"]
+    kern = [e for e in events if e.get("cat") == "kernel"]
+    k1 = [e for e in kern if any(k in e["name"] for k in K1_KERNELS)]
+    names = {k for k in K1_KERNELS if any(k in e["name"] for e in k1)}
+    check("asw_select_kernel" in names and len(names) >= 2,
+          f"trace {logdir.name}: K1's kernels {sorted(names)} of "
+          f"{len(kern)} kernel events")
+    ranges = {}
+    for e in events:
+        if e.get("cat") == "user_annotation" and e["name"] in STREAM_RANGES:
+            ranges.setdefault(e["name"], []).append(e["dur"] / 1e3)
+    check(all(len(ranges.get(r, ())) == batches for r in STREAM_RANGES),
+          f"trace {logdir.name}: ranges "
+          f"{ {r: len(v) for r, v in ranges.items()} }, expected "
+          f"{batches} of each of {STREAM_RANGES}")
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                   if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    busy, end = 0.0, -1e30
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return (sum(e["dur"] for e in k1) / 1e3 / batches, busy / 1e6 / wall_s,
+            {r: statistics.median(v) for r, v in ranges.items()})
+
+
+def stream_phase(dev, card):
+    """Phase 24, the streaming stereo service at full width: two DIB and
+    two MJPG AVIs written by the port's VideoWriter (12 side-by-side frames
+    each, 1280x720 and 384x288 pairs), one Capture per file feeding
+    batches of 8 pairs to StereoASW(**MAIN).computeBatch on K1, a warm
+    batch and 4 under profiling.trace with the grab / upload / match /
+    readback ranges; maps, K1 vs its twin, the trace, throughput, memory
+    and host-clock stage times, and computeBatch with the grab threads
+    stopped."""
+    from simplestereo_tpu_torch import profiling, utils, videoio
+    from simplestereo_tpu_torch.passive import StereoASW, asw_cuda
+
+    root = stream_dir()
+    m = StereoASW(device=dev, **MAIN)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    D = MAIN["maxDisparity"] - MAIN["minDisparity"] + 1
+    t0 = time.perf_counter()
+    streams = []
+    for i, (h, w) in enumerate(STREAM_SHAPES):
+        frames, lefts, shifts = stream_frames(h, w, STREAM_SEED + i)
+        for codec in STREAM_CODECS:
+            path = root / f"{w}x{h}_{codec.strip()}.avi"
+            with videoio.VideoWriter(str(path), fps=30.0, codec=codec,
+                                     quality=STREAM_QUALITY) as wr:
+                for f in frames:
+                    wr.write(f)
+            streams.append((h, w, codec, path, lefts, shifts))
+        del frames
+    write_s = time.perf_counter() - t0
+
+    asw_cuda.launches = 0
+    calls = 0
+    k1_err = None
+    report = {}
+    for h, w, codec, path, lefts, shifts in streams:
+        name = f"{w}x{h} {codec.strip()}"
+        pairs = profiling.Throughput(name, unit="pairs")
+        rate = profiling.Throughput(name, unit="Mpix*disp")
+        stages = []
+
+        def batch(cap):
+            t0 = time.perf_counter()
+            with profiling.annotate("grab"):
+                got = [wait_frame(cap) for _ in range(STREAM_B)]
+            t1 = time.perf_counter()
+            L = np.stack([g[:, :w] for g in got])
+            R = np.stack([g[:, w:] for g in got])
+            t2 = time.perf_counter()
+            disp = m.computeBatch(L, R)
+            stages.append((t1 - t0, t2 - t1, time.perf_counter() - t2))
+            return L, R, disp
+
+        kept = []
+        t_stream = time.perf_counter()
+        with utils.Capture(str(path)) as cap:
+            check(cap.isFile and cap.getResolution() == (2 * w, h),
+                  f"{name}: Capture routing {type(cap._source).__name__} "
+                  f"{cap.getResolution()}")
+            if k1_err is None and (h, w) == STREAM_SHAPES[0]:
+                with calls_of(asw_cuda, "_asw_pass") as k1_calls:
+                    kept.append(batch(cap))
+                # The first and the last frame of the stack (the twin
+                # takes ~2 s a frame on three bands at this size).
+                a, out, _ = k1_calls[0]
+                ends = [0, STREAM_B - 1]
+                k1_err = k1_on_path(
+                    a.pop("planes")[ends], a,
+                    tuple(None if t is None else t[ends] for t in out),
+                    f"{name} streamed batch, frames {ends}")
+                del a, out, k1_calls
+            else:
+                kept.append(batch(cap))
+            warm_s = time.perf_counter() - t_stream
+            logdir = root / f"trace_{w}x{h}_{codec.strip()}"
+            t0 = time.perf_counter()
+            with profiling.trace(logdir, device=dev):
+                t1 = time.perf_counter()
+                for _ in range(STREAM_TIMED):
+                    with pairs.measure(STREAM_B), \
+                            rate.measure(STREAM_B * h * w * D / 1e6):
+                        kept.append(batch(cap))
+                wall = time.perf_counter() - t1  # each batch ends in a readback
+            trace_s = time.perf_counter() - t0
+            L, R = kept[-1][0], kept[-1][1]
+            busy_threads = host_ms(m.computeBatch, [(L, R)] * 5)[0]
+        alone = host_ms(m.computeBatch, [(L, R)] * 5)[0]
+        stream_s = time.perf_counter() - t_stream
+        calls += 1 + STREAM_TIMED + 2 * 5
+        k1_ms, busy, ranges = trace_summary(logdir, wall, STREAM_TIMED)
+        scores = [s for L_, _, d in kept for s in
+                  stream_scores(L_, d, lefts, shifts, name)]
+        seen = sorted({k for k, _ in scores})
+        share = float(np.mean([v for _, v in scores]))
+        worst = min(v for _, v in scores)
+        if codec == "DIB ":
+            check(worst >= STREAM_BAR, f"{name}: a frame's map is at its "
+                  f"shift on only {worst:.2%} of the interior")
+        else:
+            dib = report[f"{w}x{h} DIB"]["share"]
+            check(share >= STREAM_MJPG * dib, f"{name}: share {share:.2%} "
+                  f"< {STREAM_MJPG:.0%} of the DIB stream's {dib:.2%}")
+        med = lambda k: statistics.median(s[k] for s in stages[1:]) * 1e3
+        report[name] = dict(share=share, worst=worst, frames=len(seen),
+                            pairs=pairs.report(), rate=rate.report(),
+                            k1_ms=k1_ms, busy=busy, ranges=ranges,
+                            grab=med(0), stack=med(1), call=med(2),
+                            threads=busy_threads, alone=alone,
+                            walls=(stream_s, warm_s, trace_s))
+    n = asw_cuda.launches
+    check(n == calls, f"streaming: {n} K1 launches, expected {calls}")
+    mem = profiling.device_memory()
+    parts = []
+    for name, r in report.items():
+        rg = r["ranges"]
+        parts.append(
+            f"{name}: share {r['share']:.2%} (worst frame {r['worst']:.2%}, "
+            f"{r['frames']} of {STREAM_FRAMES} written frames seen), "
+            f"{r['pairs']['pairs_per_s']:.1f} pairs/s, "
+            f"{r['rate']['Mpix*disp_per_s']:.0f} Mpix*disp/s (traced), K1 "
+            f"{r['k1_ms']:.2f} ms a batch (trace), device busy "
+            f"{r['busy']:.1%}; host ms a batch: grab wait {r['grab']:.2f}, "
+            f"stack {r['stack']:.2f}, computeBatch {r['call']:.2f} (ranges: "
+            f"upload {rg['upload']:.2f}, match {rg['match']:.2f}, readback "
+            f"{rg['readback']:.2f}; grab {rg['grab']:.2f}); computeBatch "
+            f"untraced {r['threads']:.2f} with the grab thread running, "
+            f"{r['alone']:.2f} with it stopped; stream wall "
+            f"{r['walls'][0]:.2f} s (warm batch {r['walls'][1]:.2f}, trace "
+            f"with its start and export {r['walls'][2]:.2f})")
+    mem0 = next(iter(mem.values()))
+    print(f"phase 24 streaming StereoASW(35, 14, 4, 15, 17.5, consistent) "
+          f"B={STREAM_B} through Capture on 4 AVIs written in "
+          f"{write_s:.2f} s (MJPG quality {STREAM_QUALITY}), K1 launches "
+          f"{n}; K1 vs twin on frames 0 and {STREAM_B - 1} of the first "
+          f"{STREAM_SHAPES[0][1]}x{STREAM_SHAPES[0][0]} batch "
+          f"({k1_err[3]}): max "
+          f"abs err {k1_err[0]:.3g}, rel {k1_err[1]:.3g}, map mismatch "
+          f"{k1_err[2]:.4%} | " + " | ".join(parts)
+          + f" | device memory in use {mem0['bytes_in_use'] / 2**20:.0f} "
+          f"MiB, peak in this phase {mem0['peak_bytes_in_use'] / 2**20:.0f} "
+          f"MiB of "
+          f"{mem0['bytes_limit'] / 2**30:.1f} GiB | {card}")
+    return root
+
+
+def jpeg_phase(card, root):
+    """Phase 25: the JPEG codec on the card's host (no Pillow there):
+    1280x720 smooth frames round-trip within the JAX MJPG test's bar (mean
+    |d| < 4), ms a frame each way, imgio's .jpg; then the port's
+    202_streaming_pipeline.py at its own defaults on the card."""
+    import pathlib
+    import runpy
+    import shutil
+    from simplestereo_tpu_torch import imgio, native
+
+    h, w = 720, 1280
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    frames = [np.stack([xx * 200 / w + 8 * i, yy * 200 / h + 5 * i,
+                        (xx + yy) * 150 / (w + h) + 20 * i], -1)
+              .clip(0, 255).astype(np.uint8) for i in range(6)]
+    enc_ms = host_ms(lambda f: native.jpeg_encode(f, 90),
+                     [(f,) for f in frames])[0]
+    data = [native.jpeg_encode(f, 90) for f in frames]
+    dec_ms = host_ms(native.jpeg_decode, [(d,) for d in data])[0]
+    errs = [float(np.abs(native.jpeg_decode(d).astype(int) - f).mean())
+            for d, f in zip(data, frames)]
+    check(max(errs) < 4, f"JPEG 1280x720 round trip: mean |d| {errs}")
+    imgio.imwrite(str(root / "f.jpg"), frames[0])
+    back = imgio.imread(str(root / "f.jpg"))
+    check(back.shape == frames[0].shape and
+          np.abs(back.astype(int) - frames[0]).mean() < 4,
+          "imgio .jpg round trip")
+    ex = pathlib.Path(__file__).resolve().parent / "simplestereo_tpu_torch" \
+        / "examples" / "202_streaming_pipeline.py"
+    argv = sys.argv
+    sys.argv = [str(ex)]
+    t0 = time.perf_counter()
+    try:
+        runpy.run_path(str(ex), run_name="__main__")
+    finally:
+        sys.argv = argv
+    ex_s = time.perf_counter() - t0
+    shutil.rmtree(root, ignore_errors=True)
+    print(f"phase 25 JPEG 1280x720 smooth frames, quality 90, 4:2:0: "
+          f"encode {enc_ms:.2f} ms, decode {dec_ms:.2f} ms a frame (host "
+          f"clock, median of {len(frames) - 1}), mean |d| max "
+          f"{max(errs):.3f} (bar 4); imgio .jpg round trip ok; example "
+          f"202_streaming_pipeline.py on the card in {ex_s:.2f} s | {card}")
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False: needs a "
@@ -2574,6 +2887,8 @@ def main():
     s2_max_err = timed("21", s2_phase, dev, card)
     s2_entry = timed("22", postfilter_phase, dev, card, s2_max_err)
     timed("23", calibration_phase, dev, card)
+    root = timed("24", stream_phase, dev, card)
+    timed("25", jpeg_phase, card, root)
     print("phase wall times (host clock, s, build included in 1-6): "
           + ", ".join(f"{k} {v:.1f}" for k, v in walls.items())
           + f"; total {time.perf_counter() - start:.1f} | {card}")

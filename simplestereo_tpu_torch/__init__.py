@@ -43,6 +43,9 @@ from . import unwrapping
 from . import active
 from . import native
 from . import calibration
+from . import videoio
+from . import v4l2
+from . import profiling
 from ._device import resolve_device
 
 __all__ = [
@@ -63,5 +66,8 @@ __all__ = [
     "active",
     "native",
     "calibration",
+    "videoio",
+    "v4l2",
+    "profiling",
     "resolve_device",
 ]

@@ -25,8 +25,9 @@ The sources, one per TPU kernel of the JAX package:
   (S2, the ``lax.scan``s of ``simplestereo_tpu.passive.wls._thomas_rows``).
 
 The host sources are built the same way with ``g++`` (``HOST_SOURCES``):
-``native/_ply.cpp``, the PLY writer and parser, and ``native/_png.cpp``,
-the PNG row filters undone.
+``native/_ply.cpp``, the PLY writer and parser, ``native/_png.cpp``,
+the PNG row filters undone, and ``native/_jpeg.cpp``, the baseline JPEG
+codec.
 
 Pointers and the stream are passed as ``c_void_p``, integers as ``c_int``
 (``c_longlong`` for sizes of the host libraries), floats as ``c_float`` or
@@ -52,7 +53,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
 GXX_FLAGS = ("-O2", "-shared", "-fPIC", "-std=c++17", "-pthread")
 # Host libraries: name -> source, built with g++ and GXX_FLAGS.
 HOST_SOURCES = {"ply": _CSRC.parent / "native" / "_ply.cpp",
-                "png": _CSRC.parent / "native" / "_png.cpp"}
+                "png": _CSRC.parent / "native" / "_png.cpp",
+                "jpeg": _CSRC.parent / "native" / "_jpeg.cpp"}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _L, _D, _S = ctypes.c_longlong, ctypes.c_double, ctypes.c_char_p
@@ -108,6 +110,15 @@ _SIGNATURES = {
     "png": {
         # in, height, stride, bpp, out
         "png_unfilter": ([_P, _L, _L, _I, _P], _L),
+    },
+    "jpeg": {
+        # data, n, info (int[3])
+        "jpeg_header": ([_P, _L, _P], _I),
+        # data, n, out, cap, bgr
+        "jpeg_decode": ([_P, _L, _P, _L, _I], _I),
+        # img, h, w, c, bgr, quality, hs, vs, out, cap
+        "jpeg_encode": ([_P] + [_I] * 7 + [_P, _L], _L),
+        "jpeg_error": ([], ctypes.c_char_p),
     },
 }
 

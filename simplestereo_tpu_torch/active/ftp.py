@@ -37,6 +37,7 @@ from .. import rectification
 from .. import unwrapping
 from .. import warp
 from .._device import resolve_device
+from ..geometry.distortion import pad_dist_coeffs  # noqa: F401
 from ..geometry import npgeom
 from ..geometry._small import apply_affine
 from ..geometry.distortion import distort_normalized, undistort_points

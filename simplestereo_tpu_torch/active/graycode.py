@@ -23,7 +23,7 @@ requires all four coordinates, and the half-pixel shift happens in float.
 import numpy as np
 import torch
 
-from .patterns import graycode_num_bits
+from .patterns import graycode_num_bits, graycode_patterns  # noqa: F401
 from .. import rectification
 from .. import warp
 from .._device import resolve_device

@@ -4,12 +4,13 @@ imgio
 
 Minimal image I/O without Pillow: the port of :mod:`simplestereo_tpu.imgio`.
 
-Reads 8-bit, non-interlaced PNG (gray, gray + alpha, RGB, RGBA) and binary
-PGM/PPM (P5/P6, maxval 255); writes 8-bit gray or colour PNG and P5/P6.
-zlib comes from Python's standard library; the PNG row filters are undone
-by host C++ (:func:`.native.png_unfilter`, built at first use). Any other
-format (16-bit or palette PNG, interlaced PNG, JPEG, ...) raises
-``ValueError`` naming it.
+Reads 8-bit, non-interlaced PNG (gray, gray + alpha, RGB, RGBA), baseline
+JPEG and binary PGM/PPM (P5/P6, maxval 255); writes 8-bit gray or colour
+PNG, JPEG (quality 75, 4:2:0, Pillow's defaults) and P5/P6. zlib comes
+from Python's standard library; the PNG row filters are undone and JPEG is
+coded by host C++ (:mod:`.native`, built at first use). Any other format
+(16-bit or palette PNG, interlaced PNG, progressive or arithmetic-coded
+JPEG, ...) raises ``ValueError`` naming it.
 
 Convention, as in the JAX package (which reads through Pillow) and the
 reference (``cv2.imread``): colour images are **BGR** uint8 arrays.
@@ -110,6 +111,28 @@ def _format(data):
     return "unknown"
 
 
+def read_samples(path):
+    """(H, W, C) uint8 samples of an image file as it stores them: C = 1
+    (gray), 2 (gray + alpha), 3 (RGB) or 4 (RGBA), colour in RGB order, as
+    ``np.asarray(Image.open(path))`` gives them (with a trailing axis of 1
+    for gray)."""
+    with open(path, "rb") as f:
+        data = f.read()
+    fmt = _format(data)
+    if fmt == "png":
+        return _read_png(data)
+    if fmt == "pnm":
+        return _read_pnm(data)
+    if fmt == "JPEG":
+        try:
+            img = native.jpeg_decode(data, bgr=False)
+        except ValueError as e:
+            raise ValueError(f"{path!r}: {e}") from None
+        return img[:, :, None] if img.ndim == 2 else img
+    raise ValueError(f"{path!r}: {fmt} image format is not supported "
+                     "(8-bit PNG, baseline JPEG, PGM and PPM only)")
+
+
 def imread(path, grayscale=False):
     """Read an image file to a numpy array (BGR for color, like cv2.imread).
 
@@ -125,16 +148,7 @@ def imread(path, grayscale=False):
     numpy.ndarray
         (H, W) uint8 if grayscale, else (H, W, 3) uint8 BGR.
     """
-    with open(path, "rb") as f:
-        data = f.read()
-    fmt = _format(data)
-    if fmt == "png":
-        img = _read_png(data)
-    elif fmt == "pnm":
-        img = _read_pnm(data)
-    else:
-        raise ValueError(f"{path!r}: {fmt} image format is not supported "
-                         "(8-bit PNG, PGM and PPM only)")
+    img = read_samples(path)
     if img.shape[2] in (2, 4):  # drop alpha
         img = img[:, :, :img.shape[2] - 1]
     if grayscale:
@@ -168,9 +182,11 @@ def _encode_png(arr):
 def imwrite(path, image):
     """Write a numpy array to an image file (expects BGR for color).
 
-    The format follows the extension: ``.png``, or ``.pgm``/``.ppm``/
-    ``.pnm`` (binary P5 for gray, P6 for colour). Non-uint8 values are
-    clipped to [0, 255] and truncated to uint8, as the JAX package does.
+    The format follows the extension: ``.png``, ``.jpg``/``.jpeg``
+    (baseline, quality 75, 4:2:0 as Pillow writes it), or ``.pgm``/
+    ``.ppm``/``.pnm`` (binary P5 for gray, P6 for colour). Non-uint8
+    values are clipped to [0, 255] and truncated to uint8, as the JAX
+    package does.
     """
     arr = np.asarray(image)
     if arr.dtype != np.uint8:
@@ -184,12 +200,14 @@ def imwrite(path, image):
     ext = os.path.splitext(str(path))[1].lower()
     if ext == ".png":
         data = _encode_png(arr)
+    elif ext in (".jpg", ".jpeg"):
+        data = native.jpeg_encode(arr, quality=75, bgr=False)
     elif ext in (".pgm", ".ppm", ".pnm"):
         magic = b"P5" if arr.ndim == 2 else b"P6"
         h, w = arr.shape[:2]
         data = magic + f"\n{w} {h}\n255\n".encode() + arr.tobytes()
     else:
         raise ValueError(f"{path!r}: cannot write {ext or 'no'} extension "
-                         "(.png, .pgm, .ppm or .pnm only)")
+                         "(.png, .jpg, .jpeg, .pgm, .ppm or .pnm only)")
     with open(path, "wb") as f:
         f.write(data)

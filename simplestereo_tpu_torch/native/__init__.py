@@ -3,8 +3,12 @@ native
 ======
 
 Host C++ of the port, built at first use: the PLY writer and parser of
-``_ply.cpp`` (the port of ``simplestereo_tpu/native/_ply.cpp``) and the
-PNG row unfiltering of ``_png.cpp`` (for :mod:`..imgio`).
+``_ply.cpp`` (the port of ``simplestereo_tpu/native/_ply.cpp``), the
+PNG row unfiltering of ``_png.cpp`` (for :mod:`..imgio`) and the baseline
+JPEG codec of ``_jpeg.cpp`` (for :mod:`..imgio` and :mod:`..videoio`,
+where the JAX package uses Pillow). ctypes releases the GIL during each
+call, so a decode in a :class:`..utils.Capture` grab thread leaves the
+other threads running.
 
 Each source has a plain C interface, so it needs no ``Python.h``: ``g++``
 builds it in about a second (:mod:`.._build`, ``HOST_SOURCES``) into
@@ -79,3 +83,57 @@ def png_unfilter(data, height, stride, bpp):
         raise ValueError(f"PNG row {bad - 1} has unknown filter type "
                          f"{raw[(bad - 1) * (stride + 1)]}")
     return out
+
+
+def _jpeg_fail(lib):
+    raise ValueError(f"JPEG: {lib.jpeg_error().decode()}")
+
+
+def _jpeg_header(data):
+    """(height, width, components) of the JPEG bytes ``data``."""
+    lib = _build.load_library("jpeg")
+    info = np.zeros(3, np.int32)
+    if lib.jpeg_header(data, len(data), info.ctypes.data):
+        _jpeg_fail(lib)
+    return tuple(int(v) for v in info)
+
+
+def jpeg_decode(data, bgr=True):
+    """Decode baseline JPEG bytes: (H, W, 3) uint8, BGR when ``bgr`` else
+    RGB, or (H, W) uint8 for a grayscale image. Raises ``ValueError`` on
+    malformed data and on the features the codec leaves out (progressive,
+    arithmetic coding, 12-bit samples, ...), naming them."""
+    lib = _build.load_library("jpeg")
+    h, w, c = _jpeg_header(data)
+    out = np.empty((h, w, c) if c == 3 else (h, w), np.uint8)
+    if lib.jpeg_decode(data, len(data), out.ctypes.data, out.nbytes,
+                       int(bool(bgr))):
+        _jpeg_fail(lib)
+    return out
+
+
+def jpeg_encode(image, quality=75, bgr=True, sampling=(2, 2)):
+    """Baseline JPEG bytes of ``image``: (H, W) gray or (H, W, 3) uint8 in
+    BGR order when ``bgr`` else RGB. ``sampling`` is the luma component's
+    (horizontal, vertical) factors against chroma's 1x1: (2, 2) is 4:2:0,
+    Pillow's default, (2, 1) 4:2:2, (1, 2) 4:4:0 and (1, 1) 4:4:4."""
+    lib = _build.load_library("jpeg")
+    img = np.ascontiguousarray(image, np.uint8)
+    if img.ndim == 3 and img.shape[2] == 1:
+        img = np.ascontiguousarray(img[:, :, 0])
+    if not (img.ndim == 2 or (img.ndim == 3 and img.shape[2] == 3)):
+        raise ValueError(f"cannot encode an image of shape {img.shape} as "
+                         "JPEG: gray (H, W) or colour (H, W, 3) only")
+    h, w = img.shape[:2]
+    c = 1 if img.ndim == 2 else 3
+    cap = img.nbytes // 2 + 65536
+    while True:
+        out = np.empty(cap, np.uint8)
+        n = lib.jpeg_encode(img.ctypes.data, h, w, c, int(bool(bgr)),
+                            int(quality), int(sampling[0]), int(sampling[1]),
+                            out.ctypes.data, cap)
+        if n == -1:
+            _jpeg_fail(lib)
+        if n >= 0:
+            return out[:n].tobytes()
+        cap = -n - 2

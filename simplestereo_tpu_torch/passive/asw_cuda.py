@@ -31,7 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import _build
-from .asw_ref import _cost_volume, lr_check
+from .asw_ref import _cost_volume, lr_check, occlusion_fill  # noqa: F401
 from .lab import bgr_to_lab
 
 TAD_CAP = 40.0

@@ -35,6 +35,7 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
+from .asw_ref import occlusion_fill  # noqa: F401 (the JAX module's re-export)
 
 # Elements of one (offsets, H, W, D) chunk of the twin's window walk.
 _TWIN_CHUNK = 1 << 25

@@ -31,7 +31,7 @@ import torch.nn.functional as F
 
 from .. import _build
 from .asw_cuda import _check_planes
-from .asw_ref import lr_check
+from .asw_ref import lr_check, occlusion_fill  # noqa: F401
 from .gsw import _argmin_disp, _gsw_cost, _mi_volume, _quantize_gray
 
 BGR_SENTINEL = 1.0e6  # exp(-||sentinel - c|| / gamma) underflows to 0.0

@@ -34,6 +34,8 @@ import torch
 from .._device import resolve_device
 from .sgm_cuda import aggregate
 
+INVALID_SHIFT = 4  # output = disparity * 16 (OpenCV DISP_SHIFT convention)
+
 
 def _luma(img):
     b, g, r = (img[..., i].to(torch.float32) for i in range(3))

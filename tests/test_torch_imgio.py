@@ -4,7 +4,8 @@
 PNGs that Pillow writes read back equal (colour as BGR, ``grayscale=True``
 as Pillow's ``convert("L")``); the port's PNGs and P5/P6 files read equal
 in Pillow; a hand-built PNG for each of the five row filters decodes to
-its pixels; 16-bit, palette, interlaced and JPEG files raise ValueError.
+its pixels; 16-bit, palette, interlaced and progressive JPEG files raise
+ValueError.
 """
 
 import struct
@@ -154,9 +155,9 @@ def test_unsupported_raises(tmp_path, what):
         Image.fromarray(_image(6)).convert("P").save(str(path))
     elif what == "interlaced":
         path.write_bytes(_png(4, 4, 0, b"\x00" * 20, interlace=1))
-    else:
+    else:  # baseline JPEG reads (test_torch_jpeg.py); progressive raises
         path = tmp_path / "u.jpg"
-        Image.fromarray(_image(6)).save(str(path))
+        Image.fromarray(_image(6)).save(str(path), progressive=True)
     with pytest.raises(ValueError, match=what.split("-")[0]):
         imgio.imread(str(path))
 

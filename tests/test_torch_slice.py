@@ -138,7 +138,8 @@ def test_cuda_device_raises_without_card():
 
 def test_port_runs_with_jax_blocked():
     """The port imports and runs its CPU path in a process where jax (and
-    pillow) cannot be imported, as on the GPU machine."""
+    pillow) cannot be imported, as on the GPU machine: the matcher, JPEG
+    files, an MJPG video through Capture, and a profiler trace."""
     code = textwrap.dedent("""
         import sys
         sys.modules["jax"] = None
@@ -154,7 +155,29 @@ def test_port_runs_with_jax_blocked():
         d = m.compute(img1, img2)
         assert d.dtype == np.int16 and (d[3:-3, 6:-3] == 2).mean() > 0.95
         assert asw_cuda.launches == 0
+        # host I/O, capture and profiling: JPEG, MJPG video, Capture
+        import os, tempfile, time
+        from simplestereo_tpu_torch import (imgio, profiling, utils, v4l2,
+                                            videoio)
+        from simplestereo_tpu_torch.examples._cli import device_arg
+        tmp = tempfile.mkdtemp()
+        imgio.imwrite(os.path.join(tmp, "a.jpg"), img1)
+        back = imgio.imread(os.path.join(tmp, "a.jpg"))
+        assert back.shape == img1.shape
+        path = os.path.join(tmp, "v.avi")
+        with videoio.VideoWriter(path, codec="MJPG") as wr:
+            wr.write(np.concatenate([img1, img2], axis=1))
+        with profiling.trace(tmp, device="cpu"):
+            with utils.Capture(path) as cap:
+                while (f := cap.get()) is None:
+                    time.sleep(0.01)
+            with profiling.annotate("match"):
+                d = m.computeBatch(f[None, :, :32], f[None, :, 32:])
+        assert d.shape == (1, 16, 32)
+        assert profiling.PERFETTO_FILE in os.listdir(tmp)
+        assert v4l2.yuyv_to_bgr(bytes(32), 4, 4).shape == (4, 4, 3)
         assert "simplestereo_tpu" not in sys.modules
+        assert sys.modules["PIL"] is None and sys.modules["jax"] is None
         print("ok")
     """)
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
