@@ -87,6 +87,15 @@ all started together) and drives the port's main paths:
 - the native JPEG codec at 1280x720 (round trip within the JAX MJPG
   test's bar, ms a frame each way) and the port's
   ``examples/202_streaming_pipeline.py`` on the card.
+- the row-tiled paths of ``parallel``: the 1280x720 ASW pair as 4 row
+  tiles with halos through the ASW kernel in context mode (and 384x288 x
+  8), concatenated bit-equal to the whole image; the SGM kernel's
+  direction families with a carry-in against their twin on random
+  volumes, and the 1280x720 D = 128 volume as 4 tiles chained by carries,
+  its S ``torch.equal`` to the whole volume's; then every ``parallel``
+  path (tiled ASW, SGM, GSW, the sharded FTP cloud, the Gauss-Newton on a
+  mesh, ``dryrun_multichip``) on an explicit one-rank NCCL group, each
+  equal to its single-card call, with the kernels' launches counted.
 
 Every kernel's JSON record carries ``bound_ms``, the least time the card
 could take for the kernel's work at the timed shape: the larger of its
@@ -2240,6 +2249,31 @@ def calib_poses(rig_args):
     return poses
 
 
+def gn_views():
+    """tests/test_calibration.py's 16 synthetic views of a 7x6 board and
+    the Zhang start values: (K_true, (objects, images, K0, dist0))."""
+    from simplestereo_tpu_torch.calibration import ba
+
+    rng = np.random.default_rng(11)
+    K = np.array([[800., 0, 640], [0, 790, 360], [0, 0, 1]])
+    dist = np.array([-0.12, 0.03, 0.001, -0.0005, 0.01])
+    xx, yy = np.meshgrid(np.arange(7), np.arange(6))
+    obj = np.stack([xx.ravel() * 30., yy.ravel() * 30., np.zeros(42)], 1)
+    imgs = []
+    for _ in range(16):
+        rvec = rng.normal(0, 0.25, 3)
+        tvec = np.array([rng.normal(-90, 30), rng.normal(-75, 30),
+                         rng.normal(600, 100)])
+        pts = ba.project_points(obj, rvec, tvec, K[0, 0], K[1, 1], K[0, 2],
+                                K[1, 2], dist)
+        imgs.append(pts + rng.normal(0, 0.1, pts.shape))
+    Hs = [ba._homography_dlt(obj[:, :2], i) for i in imgs[:6]]
+    fx, fy, cx, cy = ba._zhang_intrinsics(Hs, (1280, 720))
+    K0 = np.array([[fx, 0, cx], [0, fy, cy], [0, 0, 1.0]])
+    return K, (np.tile(obj[None], (16, 1, 1)), np.stack(imgs), K0,
+               np.zeros(5))
+
+
 def calibration_phase(dev, card):
     """Phase 23: chessboardStereo on ten rendered 1280x720 pairs on the
     card (recovery within tests/test_calibration.py's bounds), the corners
@@ -2296,25 +2330,9 @@ def calibration_phase(dev, card):
     resp_ms, _ = cuda_ms(lambda x: chessboard.corner_response(x), [g] * 6)
 
     # The one-card Gauss-Newton: tests/test_calibration.py's 16 views.
-    rng = np.random.default_rng(11)
-    K = np.array([[800., 0, 640], [0, 790, 360], [0, 0, 1]])
-    dist = np.array([-0.12, 0.03, 0.001, -0.0005, 0.01])
-    xx, yy = np.meshgrid(np.arange(7), np.arange(6))
-    obj = np.stack([xx.ravel() * 30., yy.ravel() * 30., np.zeros(42)], 1)
-    imgs = []
-    for _ in range(16):
-        rvec = rng.normal(0, 0.25, 3)
-        tvec = np.array([rng.normal(-90, 30), rng.normal(-75, 30),
-                         rng.normal(600, 100)])
-        pts = ba.project_points(obj, rvec, tvec, K[0, 0], K[1, 1], K[0, 2],
-                                K[1, 2], dist)
-        imgs.append(pts + rng.normal(0, 0.1, pts.shape))
-    Hs = [ba._homography_dlt(obj[:, :2], i) for i in imgs[:6]]
-    fx, fy, cx, cy = ba._zhang_intrinsics(Hs, (1280, 720))
-    K0 = np.array([[fx, 0, cx], [0, fy, cy], [0, 0, 1.0]])
+    K, views = gn_views()
     gn = lambda n: sharded.calibrate_camera_sharded(
-        np.tile(obj[None], (16, 1, 1)), np.stack(imgs), K0, np.zeros(5),
-        iterations=n, device=dev)
+        *views, iterations=n, device=dev)
     gn(1)  # warm
     t0 = time.perf_counter()
     rms, Ke, de, ps = gn(25)
@@ -2635,6 +2653,366 @@ def jpeg_phase(card, root):
           f"202_streaming_pipeline.py on the card in {ex_s:.2f} s | {card}")
 
 
+# Phases 26-28: the row-tiled paths of ``parallel``. The card is one, and
+# NCCL takes one rank a card, so the distributed path runs as a world of
+# one (phase 28): its halos are the image's boundary and its all-reduces
+# the identity. What n tiles do is held here by chains of tiles in one
+# process (phases 26-27); the collectives of n > 1 ranks by the CPU tests
+# on gloo.
+TILES = 4
+
+
+def tile_rows(H, halo, i, dev):
+    """Rows of tile i of TILES (H / TILES rows and ``halo`` on each side,
+    clamped to the image) and their (rows,) validity, on ``dev``."""
+    hl = H // TILES
+    idx = torch.arange(i * hl - halo, (i + 1) * hl + halo, device=dev)
+    valid = (idx >= 0) & (idx < H)
+    return idx.clamp(0, H - 1), valid
+
+
+def k1_tiles_phase(dev, card):
+    """Phase 26: the ASW main configuration at 1280x720 cut into TILES row
+    tiles with real halos and row_valid, each through K1 in context mode;
+    concatenated they must equal the whole image's pass and map (bit for
+    bit, else compare_pass's rule); the context pass against its twin on
+    two tiles; the same at 384x288 with B = 8 through the batch form."""
+    from simplestereo_tpu_torch.passive import asw_cuda
+
+    win = MAIN["winSize"]
+    pad = win // 2
+    kw = dict(win_size=win, min_disp=MAIN["minDisparity"],
+              max_disp=MAIN["maxDisparity"], gamma_c=float(MAIN["gammaC"]),
+              gamma_p=float(MAIN["gammaP"]), consistent=True)
+    fkw = dict(min_disp=kw["min_disp"], max_disp=kw["max_disp"],
+               consistent=True, subpixel=False)
+    dkw = {k: v for k, v in kw.items()}
+    parts = []
+    for (h, w), B in (((720, 1280), 1), ((288, 384), 8)):
+        left, right = pair(h, w)
+        L = torch.tensor(np.stack([np.roll(left, i, axis=0)
+                                   for i in range(B)]), device=dev)
+        R = torch.tensor(np.stack([np.roll(right, i, axis=0)
+                                   for i in range(B)]), device=dev)
+        hl = h // TILES
+        planes = asw_cuda._build_planes(L, R, win, kw["min_disp"],
+                                        kw["max_disp"])
+        whole = asw_cuda._asw_pass(planes, H=h, W=w, **kw)
+        whole_map = asw_cuda.asw_disparity_batch(L, R, **dkw)
+        tiles, maps, inputs = [], [], []
+        for i in range(TILES):
+            idx, valid = tile_rows(h, pad, i, dev)
+            keep = valid[None, :, None, None]
+            e1 = torch.where(keep, L[:, idx], 0)
+            e2 = torch.where(keep, R[:, idx], 0)
+            rv = valid.expand(B, -1)
+            inputs.append((e1, e2, rv))
+            tp = asw_cuda._build_planes(e1, e2, win, kw["min_disp"],
+                                        kw["max_disp"], row_valid=rv,
+                                        context=True)
+            k = asw_cuda._asw_pass(tp, H=hl, W=w, context=True, **kw)
+            tiles.append(k)
+            maps.append(asw_cuda.asw_disparity_batch(
+                e1, e2, row_valid=rv, context=True, **dkw))
+            if B == 1 and i < 2:  # the context pass against its twin
+                p = asw_cuda._asw_pass_plain(tp, H=hl, W=w, context=True,
+                                             **kw)
+                compare_pass(k, p, kw["min_disp"],
+                             f"K1 context tile {i} at {w}x{h}")
+                del p
+        cat = (torch.cat([t[0] for t in tiles], 2),
+               torch.cat([t[1] for t in tiles], 1),
+               torch.cat([t[2] for t in tiles], 1), None)
+        tiled_map = torch.cat(maps, 1)
+        bit = all(torch.equal(a, b) for a, b in zip(cat[:3], whole[:3]))
+        if bit:
+            check(torch.equal(tiled_map, whole_map),
+                  f"K1 tiles {w}x{h}: map differs from the whole image's")
+            rule = "bit-equal"
+        else:
+            errs = compare_pass(cat, whole, kw["min_disp"],
+                                f"K1 tiles vs whole {w}x{h}")
+            m = (tiled_map != whole_map).double().mean().item()
+            check(m <= MISMATCH, f"K1 tiles {w}x{h}: map mismatch {m:.2%}")
+            rule = (f"not bit-equal: cost rel err {errs[1]:.3g}, pass map "
+                    f"mismatch {errs[2]:.4%}, final map mismatch {m:.4%}")
+        whole_ms, _ = cuda_ms(lambda x: asw_cuda.asw_disparity_batch(
+            L, R, **dkw), [None] * 6)
+        tiled_ms, _ = cuda_ms(lambda x: [asw_cuda.asw_disparity_batch(
+            e1, e2, row_valid=rv, context=True, **dkw)
+            for e1, e2, rv in inputs], [None] * 6)
+        parts.append(
+            f"{w}x{h} B={B}: {TILES} tiles of {hl} rows + 2 x {pad} halo "
+            f"rows ({(hl + 2 * pad) / hl:.3f}x the rows read), passes and "
+            f"maps {rule}{'; tiles 0-1 vs twin ok' if B == 1 else ''}; "
+            f"{TILES} tile calls {tiled_ms:.3f} ms vs the untiled call "
+            f"{whole_ms:.3f} ms (CUDA events)")
+        del planes, whole, tiles, cat
+        torch.cuda.empty_cache()
+    print(f"phase 26 K1 in context mode (win {win}, d {kw['min_disp']}.."
+          f"{kw['max_disp']}, consistent; the twin held to compare_pass's "
+          f"gates) | " + " | ".join(parts) + f" | {card}")
+
+
+def k2_carry_phase(dev, card):
+    """Phase 27: K2's direction families with a carry-in. Every family
+    with a random non-zero carry against the twin (each direction's L
+    torch.equal) on small random volumes in every kernel form (D 1, 16,
+    40, 100 with 16-byte loads, 130, 300 on the first version; 8 and 4
+    paths); then the 720p D = 128 BT volume cut into TILES row tiles,
+    downward and upward chained through K2 with carries: the tiles' S
+    torch.equal to the whole volume's, one tile's families torch.equal to
+    the twin from the same carries; times. Returns the kernels-line entry
+    of the carry mode (its launches are set by phase 28)."""
+    from simplestereo_tpu_torch.passive import StereoSGM, sgm, sgm_cuda
+
+    rng = np.random.default_rng(SEED + 9)
+    forms = set()
+    for h, w, D in ((45, 150, 1), (45, 150, 16), (45, 150, 40),
+                    (37, 101, 100), (45, 150, 130), (20, 64, 300)):
+        for paths in (8, 4):
+            C = torch.tensor(rng.integers(0, 200, (h, w, D)).astype(
+                np.float32), device=dev)
+            k_out = p_out = None
+            for fam in ("horizontal", "down", "up"):
+                first, n, step = sgm_cuda._family(fam, paths)
+                carry = None if fam == "horizontal" else torch.tensor(
+                    rng.integers(0, 300, (n, w, D)).astype(np.float32),
+                    device=dev)
+                k_out = sgm_cuda.aggregate(C, 12.0, 40.0, paths,
+                                           directions=fam, carry=carry,
+                                           out=k_out)
+                p_out = sgm_cuda._aggregate(C, 12.0, 40.0, paths,
+                                            directions=fam, carry=carry,
+                                            out=p_out)
+                torch.cuda.synchronize()
+                for j in range(first, first + n * step, step):
+                    check(torch.equal(k_out[j], p_out[j]),
+                          f"K2 family {fam} direction {j} ({h}x{w} D={D}, "
+                          f"{paths} paths) differs from the twin, max abs "
+                          f"err {(k_out[j] - p_out[j]).abs().max():.3g}")
+            check(torch.equal(sgm_cuda.sum_paths(k_out),
+                              sgm_cuda._sum_plain(p_out)),
+                  f"K2 sum of the buffers ({h}x{w} D={D}, {paths} paths)")
+            forms.add(sgm_cuda._plan(1, h, w, D, paths)["npl"])
+    check(forms == {0, *sgm_cuda.NPL}, f"phase 27 ran forms {forms}")
+
+    (h, w), cfg = SGM_MAIN[1]
+    m = StereoSGM(device="cuda", **cfg)
+    P1, P2, paths, D = float(m.P1), float(m.P2), m.paths, cfg["numDisparities"]
+    left, right = pair(h, w)
+    kw = m._kwargs(subpixel=True)
+    C = sgm._cost_from_gray(
+        sgm._gray_frames(torch.tensor(left[None], device=dev)),
+        sgm._gray_frames(torch.tensor(right[None], device=dev)),
+        **{k: kw[k] for k in ("min_disp", "num_disp", "block_size",
+                              "prefilter_cap", "cost_method",
+                              "census_window")})[0].contiguous()
+    hl = h // TILES
+    tiles = [C[i * hl:(i + 1) * hl] for i in range(TILES)]
+
+    def chain():
+        Ls = [sgm_cuda.aggregate(t, P1, P2, paths, directions="horizontal")
+              for t in tiles]
+        carries = {}
+        for fam, order in (("down", range(TILES)),
+                           ("up", range(TILES - 1, -1, -1))):
+            carry = None
+            for i in order:
+                carries[(fam, i)] = carry
+                sgm_cuda.aggregate(tiles[i], P1, P2, paths, directions=fam,
+                                   carry=carry, out=Ls[i])
+                carry = sgm_cuda.carry_of(Ls[i], fam, paths)
+        return Ls, carries
+
+    S_whole = sgm_cuda.aggregate(C, P1, P2, paths)
+    n0 = sgm_cuda.launches
+    Ls, carries = chain()
+    S_tiled = torch.cat([sgm_cuda.sum_paths(L) for L in Ls])
+    torch.cuda.synchronize()
+    per_tile = (sgm_cuda.launches - n0) / TILES
+    check(torch.equal(S_tiled, S_whole),
+          f"K2 tiles at {w}x{h} D={D}: S differs from the whole volume's, "
+          f"max abs err {(S_tiled - S_whole).abs().max().item():.3g}")
+    del S_tiled
+    # the twin from the same carries on tile 1 (a carry in both families)
+    for fam in ("down", "up"):
+        first, n, step = sgm_cuda._family(fam, paths)
+        p = sgm_cuda._aggregate(tiles[1], P1, P2, paths, directions=fam,
+                                carry=carries[(fam, 1)])
+        for j in range(first, first + n * step, step):
+            check(torch.equal(Ls[1][j], p[j]), f"K2 tile 1 {fam} direction "
+                  f"{j} differs from the twin with the same carry")
+        del p
+    del Ls
+    torch.cuda.empty_cache()
+
+    # times: the whole volume, the chain, one stage's launch and its twin
+    whole_ms, _ = cuda_ms(lambda x: sgm_cuda.aggregate(C, P1, P2, paths),
+                          [None] * 5)
+    chain_ms, _ = cuda_ms(lambda x: [sgm_cuda.sum_paths(L)
+                                     for L in chain()[0]], [None] * 4)
+    L1 = sgm_cuda.aggregate(tiles[1], P1, P2, paths, directions="horizontal")
+    cd = carries[("down", 1)]
+    stage = lambda x: sgm_cuda.aggregate(tiles[1], P1, P2, paths,  # noqa
+                                         directions="down", carry=cd, out=L1)
+    stage_ms, _ = cuda_ms(stage, [None] * 6)
+    horiz_ms, _ = cuda_ms(lambda x: sgm_cuda.aggregate(
+        tiles[1], P1, P2, paths, directions="horizontal", out=L1),
+        [None] * 6)
+    sum_ms, _ = cuda_ms(lambda x: sgm_cuda.sum_paths(L1), [None] * 6)
+    plain_ms, _ = cuda_ms(lambda x: sgm_cuda._aggregate(
+        tiles[1], P1, P2, paths, directions="down", carry=cd), [None] * 3)
+    vol = hl * w * D
+    # the stage reads its tile's C and the carry once and writes 3 L
+    # buffers; per (direction, pixel, d) the recurrence's 8 operations
+    bound_ms, bound_by = bound(3 * 8 * vol, (4 * vol + 3 * w * D) * 4)
+    print(f"phase 27 K2 families with a carry-in: every family with a "
+          f"random carry vs the twin, each direction's L torch.equal, on 6 "
+          f"volumes x 8/4 paths (disparities a lane {sorted(forms)}, 0 = the "
+          f"first version) | {w}x{h} D={D} BT as {TILES} tiles of {hl} rows, "
+          f"down and up chained through K2: S torch.equal to the whole "
+          f"volume's, tile 1's families torch.equal to the twin from the "
+          f"same carries; {per_tile:.0f} K2 calls a tile (horizontal, down, "
+          f"up, sum) | CUDA events: whole volume {whole_ms:.3f} ms, the "
+          f"chain {chain_ms:.3f} ms; one tile's stages: horizontal "
+          f"{horiz_ms:.3f} ms, down with a carry {stage_ms:.3f} ms (twin "
+          f"{plain_ms:.1f} ms, bound {bound_ms:.4f} ms, {bound_by}), sum "
+          f"{sum_ms:.3f} ms | {card}")
+    return {"name": "sgm_scan (carry mode)", "route": "cuda",
+            "source": "simplestereo_tpu_torch/csrc/sgm_kernel.cu",
+            "replaces": "simplestereo_tpu/passive/sgm_pallas.py:72",
+            "launches": None, "max_abs_err": 0.0, "ms": stage_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None}
+
+
+def distributed_phase(dev, card):
+    """Phase 28: the port's ``parallel`` on an explicit one-rank NCCL group
+    on cuda:0: tiled ASW (single and batch), SGM and GSW at 1280x720, the
+    sharded FTP cloud on phase 20's scene, the Gauss-Newton on a mesh (16
+    views) and dryrun_multichip(1). The launch counts of K1, K2 and K3
+    are set to 0 before and read after; then each result is held equal to
+    its single-card call. Returns the counts."""
+    import torch.distributed as dist
+    import simplestereo_tpu_torch as tss
+    from simplestereo_tpu_torch import parallel
+    from simplestereo_tpu_torch.calibration import sharded
+    from simplestereo_tpu_torch.parallel import dryrun
+    from simplestereo_tpu_torch.passive import asw_cuda, gsw_cuda, sgm_cuda
+    from simplestereo_tpu_torch.passive.gsw import gsw_disparity
+    from simplestereo_tpu_torch.passive.sgm import _sgm_disparity
+
+    t0 = time.perf_counter()
+    parallel.init_distributed("cuda", world_size=1, rank=0)
+    rows = parallel.make_mesh({"rows": 1})
+    both = parallel.make_mesh({"batch": 1, "rows": 1})
+    views = parallel.make_mesh({"views": 1})
+    check(dist.get_backend() == "nccl" and parallel.mesh_device(rows) == dev,
+          f"phase 28: backend {dist.get_backend()}, device "
+          f"{parallel.mesh_device(rows)}")
+    start_s = time.perf_counter() - t0
+
+    (h, w) = (720, 1280)
+    left, right = pair(h, w)
+    lefts = np.stack([np.roll(left, i, axis=0) for i in range(2)])
+    rights = np.stack([np.roll(right, i, axis=0) for i in range(2)])
+    akw = dict(win_size=MAIN["winSize"], min_disp=MAIN["minDisparity"],
+               max_disp=MAIN["maxDisparity"], gamma_c=MAIN["gammaC"],
+               gamma_p=MAIN["gammaP"], consistent=True)
+    scfg = SGM_MAIN[1][1]
+    skw = dict(min_disp=0, num_disp=scfg["numDisparities"],
+               block_size=scfg["blockSize"], P1=scfg["P1"], P2=scfg["P2"],
+               paths=8, prefilter_cap=float(scfg["preFilterCap"]),
+               uniqueness=float(scfg["uniquenessRatio"]),
+               disp12_max_diff=-1, subpixel=True, cost_method="bt",
+               census_window=5)
+    gkw = dict(win_size=GSW_MAIN["winSize"], max_disp=GSW_MAIN["maxDisparity"],
+               min_disp=GSW_MAIN["minDisparity"], gamma=GSW_MAIN["gamma"],
+               f_max=float(GSW_MAIN["fMax"]), consistent=True)
+    rig = scan_rig(dev)
+    fringe = tss.active.buildFringe(FTP_PERIOD, dims=SCAN_RES,
+                                    stripeColor="red")
+    cam = render_stack([fringe], *plane_to_projector(rig, FTP_Z0), dev,
+                       "linear")[0]
+    ftp = tss.active.StereoFTP(rig, fringe, FTP_PERIOD, device=dev)
+    roi = (16, 16, SCAN_RES[0] - 32, SCAN_RES[1] - 32)
+    K_true, gn_args = gn_views()
+
+    calls = {
+        "asw": (lambda: parallel.tiled_asw_disparity(left, right, rows,
+                                                     **akw),
+                lambda: asw_cuda.asw_disparity(
+                    torch.tensor(left, device=dev),
+                    torch.tensor(right, device=dev), **akw)),
+        "asw_batch": (lambda: parallel.tiled_asw_disparity_batch(
+            lefts, rights, both, **akw), lambda: asw_cuda.asw_disparity_batch(
+                torch.tensor(lefts, device=dev),
+                torch.tensor(rights, device=dev), **akw)),
+        "sgm": (lambda: parallel.tiled_sgm_disparity(left, right, rows,
+                                                     **skw),
+                lambda: _sgm_disparity(torch.tensor(left, device=dev),
+                                       torch.tensor(right, device=dev),
+                                       **skw)),
+        "gsw": (lambda: parallel.tiled_gsw_disparity(left, right, rows,
+                                                     **gkw),
+                lambda: gsw_disparity(torch.tensor(left, device=dev),
+                                      torch.tensor(right, device=dev),
+                                      iterations=1, **gkw)),
+        "gsw_normalize": (lambda: parallel.tiled_gsw_disparity(
+            left, right, rows, normalize=True, **gkw),
+            lambda: gsw_disparity(torch.tensor(left, device=dev),
+                                  torch.tensor(right, device=dev),
+                                  iterations=1, normalize=True, **gkw)),
+        "ftp": (lambda: parallel.sharded_ftp_cloud(ftp, cam, rows, roi=roi),
+                lambda: ftp.getCloud(cam, roi=roi)),
+        "gn": (lambda: sharded.calibrate_camera_sharded(
+            *gn_args, mesh=views, iterations=25),
+            lambda: sharded.calibrate_camera_sharded(
+                *gn_args, iterations=25, device=dev)),
+    }
+    asw_cuda.launches = sgm_cuda.launches = gsw_cuda.launches = 0
+    tiled = {name: run() for name, (run, _) in calls.items()}
+    dry = dryrun.dryrun_multichip(1, "cuda")
+    torch.cuda.synchronize()
+    counts = {"asw": asw_cuda.launches, "sgm": sgm_cuda.launches,
+              "gsw": gsw_cuda.launches}
+    check(all(counts.values()), f"phase 28: kernel launches {counts}")
+
+    def same(a, b):
+        if isinstance(a, tuple):
+            return all(same(x, y) for x, y in zip(a, b))
+        if isinstance(a, torch.Tensor):
+            return torch.equal(a, b)
+        return np.array_equal(np.asarray(a), np.asarray(b), equal_nan=True)
+
+    times = []
+    for name, (run, single) in calls.items():
+        check(same(tiled[name], single()), f"phase 28 {name}: the mesh's "
+              f"result differs from the single-card call")
+        t_ms, _ = host_ms(lambda: (run(), torch.cuda.synchronize()),
+                          [()] * 4)
+        s_ms, _ = host_ms(lambda: (single(), torch.cuda.synchronize()),
+                          [()] * 4)
+        times.append(f"{name} {t_ms:.2f} / {s_ms:.2f}")
+    rms, Ke = tiled["gn"][0], tiled["gn"][1]
+    check(rms < 0.25 and np.abs(Ke - K_true).max() < 5.0,
+          f"phase 28 gn: RMS {rms:.4f}")
+    check(tuple(dry["disp"].shape) == (2, 8, 32)
+          and np.isfinite(dry["mean_disp"]), "phase 28: dryrun_multichip")
+    dist.destroy_process_group()
+    print(f"phase 28 parallel on NCCL, a world of one on {dev} (group up "
+          f"in {start_s:.2f} s; meshes rows 1, batch 1 x rows 1, views 1): "
+          f"tiled ASW 1280x720 and a batch of 2, tiled SGM BT D=128, tiled "
+          f"GSW (and normalize) at 1280x720, sharded FTP on phase 20's "
+          f"scene, Gauss-Newton on a mesh (16 views, 25 iterations), "
+          f"dryrun_multichip(1): each equal to its single-card call; "
+          f"launches in that run: K1 {counts['asw']}, K2 {counts['sgm']}, "
+          f"K3 {counts['gsw']} | host clock, mesh / single card, ms: "
+          + ", ".join(times) + f" | {card}")
+    return counts
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False: needs a "
@@ -2889,12 +3267,17 @@ def main():
     timed("23", calibration_phase, dev, card)
     root = timed("24", stream_phase, dev, card)
     timed("25", jpeg_phase, card, root)
+    timed("26", k1_tiles_phase, dev, card)
+    carry_entry = timed("27", k2_carry_phase, dev, card)
+    counts = timed("28", distributed_phase, dev, card)
+    carry_entry["launches"] = counts["sgm"]
     print("phase wall times (host clock, s, build included in 1-6): "
           + ", ".join(f"{k} {v:.1f}" for k, v in walls.items())
           + f"; total {time.perf_counter() - start:.1f} | {card}")
 
-    print(json.dumps({"kernels": [asw_entry, sgm_entry, gsw_entry,
-                                  rotate_entry, iir_entry, s2_entry]}))
+    print(json.dumps({"kernels": [asw_entry, sgm_entry, carry_entry,
+                                  gsw_entry, rotate_entry, iir_entry,
+                                  s2_entry]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

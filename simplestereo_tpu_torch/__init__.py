@@ -19,7 +19,8 @@ see :mod:`._build`), and so do the IIR unwrapping scan of
 (:mod:`.passive.wls`). Beside each kernel lives its plain PyTorch twin: the
 CPU path, and the version the kernel is checked against on the card. Host
 C++ (the PLY writer, the PNG row filters) lives under ``native/`` and is
-built with ``g++`` at first use.
+built with ``g++`` at first use. :mod:`.parallel` tiles and batches the
+matchers over several cards on ``torch.distributed``.
 
 This package imports ``torch``, ``numpy`` and ``scipy`` and never ``jax``
 or Pillow; ``matplotlib`` only when an FTP debug plot is asked for.
@@ -43,6 +44,7 @@ from . import unwrapping
 from . import active
 from . import native
 from . import calibration
+from . import parallel
 from . import videoio
 from . import v4l2
 from . import profiling
@@ -66,6 +68,7 @@ __all__ = [
     "active",
     "native",
     "calibration",
+    "parallel",
     "videoio",
     "v4l2",
     "profiling",

@@ -74,6 +74,12 @@ _SIGNATURES = {
         # device, stream
         "sgm_aggregate": ([_P] * 3 + [_I] * 4 + [_F] * 2 + [_I] * 6 + [_P],
                           _I),
+        # C, L, carry, B, H, W, D, P1, P2, dir0, ndir, dir_step,
+        # slot_stride, npl, group, vec, device, stream
+        "sgm_scan": ([_P] * 3 + [_I] * 4 + [_F] * 2 + [_I] * 3 + [_L]
+                     + [_I] * 4 + [_P], _I),
+        # L, S, vol, stride, nbuf, device, stream
+        "sgm_sum": ([_P] * 2 + [_L] * 2 + [_I] * 2 + [_P], _I),
         "sgm_error_string": ([_I], ctypes.c_char_p),
     },
     "gsw_kernel": {

@@ -3,7 +3,8 @@ sharded
 =======
 
 Device-resident Gauss-Newton camera calibration for large view counts, the
-port of :mod:`simplestereo_tpu.calibration.sharded` on one card.
+port of :mod:`simplestereo_tpu.calibration.sharded`, on one card or over a
+mesh axis of :mod:`simplestereo_tpu_torch.parallel`.
 
 Per-view Gauss-Newton blocks are built on the device with
 ``torch.func.jacfwd`` under ``torch.func.vmap`` and the intrinsic normal
@@ -14,12 +15,13 @@ equations are reduced over the views, the Schur-complement form:
     g   = sum_i A_i^T r_i - A_i^T B_i (B_i^T B_i)^-1 B_i^T r_i
     d_theta = -S^-1 g;  d_pose_i by back-substitution.
 
-The JAX package shards the views over a mesh axis and reduces with
-``psum``; here the sums run over the whole stack on one card, and a mesh
-raises ``NotImplementedError`` (the multi-card form waits for the port of
-``parallel/`` on ``torch.distributed``). The projection's 3x3 products are
-written as sums (no TF32 can enter); the small solves are
-``torch.linalg``'s.
+On one card the sums run over the whole stack. On a mesh, as in the JAX
+package, the views are split over the mesh axis: each rank builds the
+blocks of its own views, S, g and the cost are summed over the ranks
+(``all_reduce`` SUM, the JAX ``psum``), every rank solves the same small
+system, and pose blocks never leave their rank until the poses are
+gathered at the end. The projection's 3x3 products are written as sums (no
+TF32 can enter); the small solves are ``torch.linalg``'s.
 """
 
 import numpy as np
@@ -52,24 +54,33 @@ def calibrate_camera_sharded(object_points, image_points, K_init,
                              dist_init, mesh=None, axis="views",
                              iterations=20, damping=1e-3, *,
                              device="cuda"):
-    """Gauss-Newton camera calibration of many views on one card.
+    """Distributed Gauss-Newton camera calibration.
 
     object_points : (V, N, 3), image_points : (V, N, 2). K_init (3,3),
     dist_init (nd,) start values (use the host Zhang init on a subsample
-    of views). ``mesh`` must be None: the multi-card form is not ported
-    (``axis`` is kept for the JAX package's signature). Arrays run on
-    ``device`` (default ``"cuda"``); the views are float32 there.
+    of views). ``mesh``: None runs every view on ``device`` (default
+    ``"cuda"``); a :func:`..parallel.make_mesh` mesh splits the views over
+    its axis ``axis`` (V divisible by its size) and runs on the mesh's
+    device, every rank passing the same views. The views are float32.
 
     Returns (rms, K, dist, poses (V, 6)), numpy float64 as the JAX
-    package returns them.
+    package returns them, on every rank.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "calibrate_camera_sharded: a mesh (views over several cards) "
-            "is not ported; pass mesh=None to run on one card")
-    dev = resolve_device(device)
     obj_np = np.asarray(object_points, np.float32)
     img_np = np.asarray(image_points, np.float32)
+    V = obj_np.shape[0]
+    if mesh is None:
+        dev, views = resolve_device(device), slice(None)
+    else:
+        from torch.distributed.device_mesh import DeviceMesh
+        from .. import parallel
+        if not isinstance(mesh, DeviceMesh):
+            raise TypeError(f"mesh must be a DeviceMesh (parallel."
+                            f"make_mesh), got {type(mesh).__name__}")
+        dev = parallel.mesh_device(mesh)
+        n, idx, _ = parallel._axis(mesh, axis)
+        vl = parallel._split(n, V, axis, "views")
+        views = slice(idx * vl, (idx + 1) * vl)
     nd = len(np.ravel(dist_init))
     n_intr = 4 + nd
 
@@ -84,9 +95,16 @@ def calibrate_camera_sharded(object_points, image_points, K_init,
         H = ba._homography_dlt(o[:, :2], i)
         r, t = ba._extrinsics_from_h(H, K_init)
         poses0.append(np.concatenate([r, t]))
-    poses = torch.as_tensor(np.stack(poses0).astype(np.float32), device=dev)
-    obj = torch.as_tensor(obj_np, device=dev)
-    img = torch.as_tensor(img_np, device=dev)
+    poses = torch.as_tensor(np.stack(poses0).astype(np.float32)[views],
+                            device=dev)
+    obj = torch.as_tensor(obj_np[views], device=dev)
+    img = torch.as_tensor(img_np[views], device=dev)
+
+    def total(x):
+        """The sum over every view: over the mesh's ranks too."""
+        if mesh is not None:
+            parallel.all_reduce(x, mesh, axis)
+        return x
 
     eye6 = damping * torch.eye(6, dtype=torch.float32, device=dev)
     eye_i = damping * torch.eye(n_intr, dtype=torch.float32, device=dev)
@@ -114,10 +132,13 @@ def calibrate_camera_sharded(object_points, image_points, K_init,
 
     for _ in range(iterations):
         S, g, B, BtB_inv, r = blocks(intr, obj, img, poses)
-        d_intr = -torch.linalg.solve(S.sum(0) + eye_i, g.sum(0))
+        d_intr = -torch.linalg.solve(total(S.sum(0)) + eye_i,
+                                     total(g.sum(0)))
         poses = backs(intr, d_intr, obj, img, poses, B, BtB_inv, r)
         intr = intr + d_intr
-    cost = cost_of(intr, obj, img, poses).sum().item()
+    cost = total(cost_of(intr, obj, img, poses).sum()).item()
+    if mesh is not None:
+        poses = parallel.all_gather_cat(poses, mesh, axis)
 
     intr = intr.cpu().numpy().astype(np.float64)
     K = np.array([[intr[0], 0, intr[2]], [0, intr[1], intr[3]], [0, 0, 1]])

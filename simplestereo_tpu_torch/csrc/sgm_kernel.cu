@@ -54,6 +54,19 @@
 // lane): one warp a line, lanes over d in strides of 32, ping-pong rows in
 // shared memory.
 //
+// A subset of directions with a carry-in (sgm_scan): the row-tiled matcher
+// (simplestereo_tpu_torch/parallel/sgm.py) runs a tile's horizontal pair,
+// then its k downward and its k upward directions as stages of a wavefront
+// across tiles, each direction's L into its own buffer, and sums the
+// buffers in the summation order above (sgm_sum). A vertical or diagonal
+// line that starts on the tile's first row (last row, scanning up) then
+// takes L(p - r, .) = carry[x - dx, .] of the tile before it, zero where
+// x - dx leaves [0, W), and m = min_d of that row: the JAX wavefront's
+// _roll_cols(carry, roll) (simplestereo_tpu/parallel/sgm.py). A line that
+// starts on the first column has no predecessor in any tile and starts
+// from zero as before. The carry-out is the last (first) row of the
+// direction's L buffer; the caller cuts it out.
+//
 // Frames ride grid y; the caller (sgm_cuda.aggregate) splits a larger stack
 // into launches of at most 65,535 frames.
 
@@ -142,18 +155,21 @@ __device__ __forceinline__ void load_step(float (&dst)[NPL], const float* q,
 }
 
 // grid (line blocks, frames, directions run side by side); block kWarps
-// warps. Direction dir0 + blockIdx.z writes out + blockIdx.z * dir_stride:
-// L itself (acc == 0) or S + L into S (acc != 0).
+// warps. Direction dir0 + blockIdx.z * dir_step writes out + blockIdx.z *
+// dir_stride: L itself (acc == 0) or S + L into S (acc != 0). carry: null,
+// or (frames, gridDim.z, W, D), the row before the first row of each
+// direction of the launch (see sgm_scan).
 template <int NPL, bool kVec>
 __global__ void __launch_bounds__(kWarps * 32) sgm_lines_kernel(
-    const float* __restrict__ C, float* __restrict__ out, int H, int W, int D,
-    int G, int dir0, long long dir_stride, float P1, float P2, int acc) {
+    const float* __restrict__ C, float* __restrict__ out,
+    const float* __restrict__ carry, int H, int W, int D, int G, int dir0,
+    int dir_step, long long dir_stride, float P1, float P2, int acc) {
   constexpr int P = NPL <= 4 ? 8 : 4;  // steps of C and S fetched ahead
   const int lane = threadIdx.x & 31;
   const int g = lane & (G - 1);  // lane within its line's group
   const int per_warp = 32 / G;   // lines a warp
   int dy, dx;
-  direction(dir0 + blockIdx.z, dy, dx);
+  direction(dir0 + blockIdx.z * dir_step, dy, dx);
   const int nlines = num_lines(dy, dx, H, W);
   const int first = (blockIdx.x * kWarps + (threadIdx.x >> 5)) * per_warp;
   if (first >= nlines) return;  // the whole warp leaves together
@@ -178,10 +194,24 @@ __global__ void __launch_bounds__(kWarps * 32) sgm_lines_kernel(
     load_step<NPL, kVec, false>(sb[j], Of + p0 + j * stride, on && acc, d0, D);
   }
 
-  float lp[NPL];  // L(p - r, .) of this lane's disparities
+  // L(p - r, .) of this lane's disparities before the first step: zero,
+  // or the carried row at column x - dx for a line that starts on the
+  // tile's first row; m is its minimum over the group.
+  float lp[NPL];
+  const int xc = x - dx;
+  const bool carried = carry != nullptr && dy != 0 && n > 0 &&
+                       y == (dy > 0 ? 0 : H - 1) && xc >= 0 && xc < W;
+  float m = INFINITY;
 #pragma unroll
-  for (int k = 0; k < NPL; ++k) lp[k] = 0.0f;
-  float m = 0.0f;
+  for (int k = 0; k < NPL; ++k) {
+    lp[k] = 0.0f;
+    if (carried && d0 + k < D)
+      lp[k] = __ldg(carry + (((long long)blockIdx.y * gridDim.z + blockIdx.z) *
+                                 W + xc) * D + d0 + k);
+    if (d0 + k < D) m = fminf(m, lp[k]);
+  }
+  for (int o = G >> 1; o > 0; o >>= 1)
+    m = fminf(m, __shfl_xor_sync(kFull, m, o, G));
 
   for (int t0 = 0; t0 < nmax; t0 += P) {
 #pragma unroll
@@ -271,10 +301,12 @@ __device__ __forceinline__ float warp_min(float v) {
 }
 
 // The first version, for any D: one warp a line, L(p - r, .) and L(p, .)
-// in two shared-memory rows a warp (ping-pong). Frame blockIdx.y.
+// in two shared-memory rows a warp (ping-pong). Frame blockIdx.y. carry:
+// null, or (frames, ncarry, W, D) with this direction's rows at index cz.
 __global__ void __launch_bounds__(kWarps * 32) sgm_path_kernel(
-    const float* __restrict__ C, float* __restrict__ S, int H, int W, int D,
-    int dir, float P1, float P2, int first) {
+    const float* __restrict__ C, float* __restrict__ S,
+    const float* __restrict__ carry, int H, int W, int D, int dir, float P1,
+    float P2, int first, int cz, int ncarry) {
   extern __shared__ float smem[];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -291,8 +323,18 @@ __global__ void __launch_bounds__(kWarps * 32) sgm_path_kernel(
   int y, x;
   const int n = line_start(line, dy, dx, H, W, y, x);
 
-  for (int d = lane; d < D; d += 32) cur[d] = 0.0f;
-  float m = 0.0f;
+  const int xc = x - dx;
+  const bool carried = carry != nullptr && dy != 0 &&
+                       y == (dy > 0 ? 0 : H - 1) && xc >= 0 && xc < W;
+  const float* cr =
+      carried ? carry + (((long long)blockIdx.y * ncarry + cz) * W + xc) * D
+              : nullptr;
+  float lmin = INFINITY;
+  for (int d = lane; d < D; d += 32) {
+    cur[d] = carried ? cr[d] : 0.0f;
+    lmin = fminf(lmin, cur[d]);
+  }
+  float m = warp_min(lmin);
   __syncwarp();
 
   for (int t = 0; t < n; ++t, y += dy, x += dx) {
@@ -318,16 +360,17 @@ __global__ void __launch_bounds__(kWarps * 32) sgm_path_kernel(
 
 template <int NPL, bool kVec>
 cudaError_t launch_lines(dim3 grid, cudaStream_t s, const float* C,
-                         float* out, int H, int W, int D, int G, int dir0,
-                         long long dir_stride, float P1, float P2, int acc) {
+                         float* out, const float* carry, int H, int W, int D,
+                         int G, int dir0, int dir_step, long long dir_stride,
+                         float P1, float P2, int acc) {
   sgm_lines_kernel<NPL, kVec><<<grid, kWarps * 32, 0, s>>>(
-      C, out, H, W, D, G, dir0, dir_stride, P1, P2, acc);
+      C, out, carry, H, W, D, G, dir0, dir_step, dir_stride, P1, P2, acc);
   return cudaGetLastError();
 }
 
-using LinesFn = cudaError_t (*)(dim3, cudaStream_t, const float*, float*, int,
-                                int, int, int, int, long long, float, float,
-                                int);
+using LinesFn = cudaError_t (*)(dim3, cudaStream_t, const float*, float*,
+                                const float*, int, int, int, int, int, int,
+                                long long, float, float, int);
 
 LinesFn lines_fn(int npl, int vec) {
   switch (npl) {
@@ -337,6 +380,35 @@ LinesFn lines_fn(int npl, int vec) {
     case 8: return vec ? &launch_lines<8, true> : &launch_lines<8, false>;
     default: return nullptr;
   }
+}
+
+// Dynamic shared memory of sgm_path_kernel (two rows of D a warp), and the
+// opt-in above 48 KB.
+cudaError_t path_smem(int D, size_t& smem) {
+  smem = (size_t)kWarps * 2 * D * sizeof(float);
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(sgm_path_kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)smem);
+}
+
+// S = L_0 + ... + L_{nbuf-1} over vol floats a buffer, buffer k at
+// L + k * stride (float4 loads where vol, stride and both pointers allow).
+cudaError_t launch_sum(cudaStream_t s, const float* L, float* S,
+                       long long vol, long long stride, int nbuf) {
+  const bool v4 = vol % 4 == 0 && stride % 4 == 0 &&
+                  (((uintptr_t)S | (uintptr_t)L) & 15) == 0;
+  const long long n = v4 ? vol / 4 : vol;
+  long long blocks = (n + 255) / 256;
+  if (blocks > 132 * 32) blocks = 132 * 32;
+  if (v4)
+    sgm_sum_kernel<float4><<<(unsigned)blocks, 256, 0, s>>>(
+        reinterpret_cast<const float4*>(L), reinterpret_cast<float4*>(S), n,
+        stride / 4, nbuf);
+  else
+    sgm_sum_kernel<float><<<(unsigned)blocks, 256, 0, s>>>(L, S, n, stride,
+                                                           nbuf);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -359,19 +431,15 @@ extern "C" int sgm_aggregate(const void* C, void* S, void* work, int B, int H,
   const int ndirs = paths >= 8 ? 8 : 4;
 
   if (mode == 2) {
-    const size_t smem = (size_t)kWarps * 2 * D * sizeof(float);
-    if (smem > 48 * 1024) {
-      err = cudaFuncSetAttribute(sgm_path_kernel,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 (int)smem);
-      if (err != cudaSuccess) return (int)err;
-    }
+    size_t smem;
+    err = path_smem(D, smem);
+    if (err != cudaSuccess) return (int)err;
     for (int i = 0; i < ndirs; ++i) {
       int dy, dx;
       direction(i, dy, dx);
       const dim3 grid((num_lines(dy, dx, H, W) + kWarps - 1) / kWarps, B);
-      sgm_path_kernel<<<grid, kWarps * 32, smem, s>>>(c, out, H, W, D, i, P1,
-                                                      P2, i == 0);
+      sgm_path_kernel<<<grid, kWarps * 32, smem, s>>>(
+          c, out, nullptr, H, W, D, i, P1, P2, i == 0, 0, 1);
       err = cudaGetLastError();
       if (err != cudaSuccess) return (int)err;
     }
@@ -393,7 +461,8 @@ extern "C" int sgm_aggregate(const void* C, void* S, void* work, int B, int H,
       direction(i, dy, dx);
       const dim3 grid((num_lines(dy, dx, H, W) + per_block - 1) / per_block,
                       B, 1);
-      err = launch(grid, s, c, out, H, W, D, group, i, 0, P1, P2, i > 0);
+      err = launch(grid, s, c, out, nullptr, H, W, D, group, i, 1, 0, P1,
+                   P2, i > 0);
       if (err != cudaSuccess) return (int)err;
     }
     return 0;
@@ -405,21 +474,80 @@ extern "C" int sgm_aggregate(const void* C, void* S, void* work, int B, int H,
   const long long stride = (vol + 3) / 4 * 4;
   const int most = ndirs == 8 ? W + H - 1 : (H > W ? H : W);
   const dim3 grid((most + per_block - 1) / per_block, B, ndirs);
-  err = launch(grid, s, c, L, H, W, D, group, 0, stride, P1, P2, 0);
+  err = launch(grid, s, c, L, nullptr, H, W, D, group, 0, 1, stride, P1, P2,
+               0);
   if (err != cudaSuccess) return (int)err;
-  const bool v4 =
-      vol % 4 == 0 && (((uintptr_t)S | (uintptr_t)work) & 15) == 0;
-  const long long n = v4 ? vol / 4 : vol;
-  long long blocks = (n + 255) / 256;
-  if (blocks > 132 * 32) blocks = 132 * 32;
-  if (v4)
-    sgm_sum_kernel<float4><<<(unsigned)blocks, 256, 0, s>>>(
-        reinterpret_cast<const float4*>(L), reinterpret_cast<float4*>(out),
-        n, stride / 4, ndirs);
-  else
-    sgm_sum_kernel<float><<<(unsigned)blocks, 256, 0, s>>>(L, out, n, stride,
-                                                           ndirs);
-  return (int)cudaGetLastError();
+  return (int)launch_sum(s, L, out, vol, stride, ndirs);
+}
+
+// A subset of the directions, each into its own buffer, with an optional
+// carry-in (see the note at sgm_path_kernel). Directions dir0 + j *
+// dir_step for j < ndir; direction j writes its L to L + j * slot_stride
+// ((B, H, W, D) floats) and reads its carry rows at carry + j * W * D of
+// each frame ((B, ndir, W, D) floats, or null for a zero start). npl 0
+// runs the first version (one launch a direction), else the line kernel
+// with `group` lanes a line (one launch). B <= 65,535.
+extern "C" int sgm_scan(const void* C, void* L, const void* carry, int B,
+                        int H, int W, int D, float P1, float P2, int dir0,
+                        int ndir, int dir_step, long long slot_stride,
+                        int npl, int group, int vec, int device,
+                        void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* c = static_cast<const float*>(C);
+  float* out = static_cast<float*>(L);
+  const float* cy = static_cast<const float*>(carry);
+  if (ndir < 1 || dir_step < 1 || dir0 < 0 || dir0 + (ndir - 1) * dir_step > 7)
+    return (int)cudaErrorInvalidValue;
+  int most = 0;  // lines of the direction with the most
+  for (int j = 0; j < ndir; ++j) {
+    int dy, dx;
+    direction(dir0 + j * dir_step, dy, dx);
+    const int lines = num_lines(dy, dx, H, W);
+    if (lines > most) most = lines;
+  }
+  if (npl == 0) {
+    size_t smem;
+    err = path_smem(D, smem);
+    if (err != cudaSuccess) return (int)err;
+    for (int j = 0; j < ndir; ++j) {
+      int dy, dx;
+      direction(dir0 + j * dir_step, dy, dx);
+      const dim3 grid((num_lines(dy, dx, H, W) + kWarps - 1) / kWarps, B);
+      sgm_path_kernel<<<grid, kWarps * 32, smem, s>>>(
+          c, out + j * slot_stride, cy, H, W, D, dir0 + j * dir_step, P1, P2,
+          1, j, ndir);
+      err = cudaGetLastError();
+      if (err != cudaSuccess) return (int)err;
+    }
+    return 0;
+  }
+  if (group < 1 || group > 32 || (group & (group - 1)) != 0 ||
+      group * npl < D)
+    return (int)cudaErrorInvalidValue;
+  if (vec && (D % 4 != 0 || npl < 4 || slot_stride % 4 != 0 ||
+              (((uintptr_t)C | (uintptr_t)L) & 15) != 0))
+    return (int)cudaErrorInvalidValue;
+  const LinesFn launch = lines_fn(npl, vec);
+  if (launch == nullptr) return (int)cudaErrorInvalidValue;
+  const int per_block = kWarps * 32 / group;
+  const dim3 grid((most + per_block - 1) / per_block, B, ndir);
+  return (int)launch(grid, s, c, out, cy, H, W, D, group, dir0, dir_step,
+                     slot_stride, P1, P2, 0);
+}
+
+// S = L_0 + L_1 + ... + L_{nbuf-1}, left to right (each buffer vol floats,
+// buffer k at L + k * stride): the sum of sgm_scan's buffers in the
+// summation order of sgm._aggregate.
+extern "C" int sgm_sum(const void* L, void* S, long long vol,
+                       long long stride, int nbuf, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (nbuf < 2) return (int)cudaErrorInvalidValue;
+  return (int)launch_sum(static_cast<cudaStream_t>(stream),
+                         static_cast<const float*>(L), static_cast<float*>(S),
+                         vol, stride, nbuf);
 }
 
 extern "C" const char* sgm_error_string(int err) {

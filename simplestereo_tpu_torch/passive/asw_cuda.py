@@ -135,18 +135,30 @@ def _pads(win_size, min_disp, max_disp):
     return pad, pad + max(max_disp, 0), pad + max(-min_disp, 0)
 
 
-def _build_planes(imgs1, imgs2, win_size, min_disp, max_disp):
+def _build_planes(imgs1, imgs2, win_size, min_disp, max_disp, row_valid=None,
+                  context=False):
     """(B, H, W, 3) BGR pairs -> (B, 12, Hp, Wp) float32 planes.
 
     Channels: [0:3] Lab(left), [3:6] Lab(right), [6:9] BGR(left),
     [9:12] BGR(right). Image pixel (y, x) sits at plane (y + pad,
     x + left) with ``(pad, left, _) = _pads(...)``.
+
+    ``row_valid``: optional (B, H) bool; a row marked False is filled like
+    the padding (Lab sentinel, BGR 0), so its window pixels weigh exactly
+    0, as an out-of-image row's do. ``context``: the first and last
+    ``pad`` rows of the input are window sources only; they take the place
+    of the top and bottom padding (image row y sits at plane row y), and
+    the pass is run for the ``H - 2 * pad`` rows between them. Both serve
+    the row-tiled matcher of :mod:`simplestereo_tpu_torch.parallel`.
     """
     pad, left, right = _pads(win_size, min_disp, max_disp)
+    rows = 0 if context else pad
 
     def pack(arr, fill):
-        return F.pad(arr.permute(0, 3, 1, 2), (left, right, pad, pad),
-                     value=fill)
+        a = arr.permute(0, 3, 1, 2)
+        if row_valid is not None:
+            a = torch.where(row_valid[:, None, :, None], a, fill)
+        return F.pad(a, (left, right, rows, rows), value=fill)
 
     return torch.cat([
         pack(bgr_to_lab(imgs1), LAB_SENTINEL),
@@ -183,7 +195,8 @@ def _check_planes(planes, want, win_size, min_disp, max_disp, step):
 
 
 def _asw_pass(planes, *, H, W, win_size, min_disp, max_disp, gamma_c,
-              gamma_p, step=1, consistent=True, subpixel=False, plan=None):
+              gamma_p, step=1, consistent=True, subpixel=False, context=False,
+              plan=None):
     """Matching pass over a frame stack of planes (B, 12, Hp, Wp).
 
     Returns ``(cost, dispL, dispR, csub)``: the masked cost volume
@@ -192,6 +205,11 @@ def _asw_pass(planes, *, H, W, win_size, min_disp, max_disp, gamma_c,
     from the same volume (None unless ``consistent``); and
     (B, 3, H, W) float32 [c(best-1), c(best), c(best+1)], 0 where the
     neighbour does not exist (None unless ``subpixel``).
+
+    ``context``: the planes' top and bottom ``pad`` rows hold image rows
+    (window sources) instead of padding (:func:`_build_planes`). The kernel
+    reads plane rows ``[y, y + win)`` for output row ``y`` either way; the
+    twin needs to know.
 
     A CUDA tensor launches the kernel as ``plan`` lays it out (default
     :func:`_plan` of this call's shapes; a stack of more frames than a
@@ -206,7 +224,7 @@ def _asw_pass(planes, *, H, W, win_size, min_disp, max_disp, gamma_c,
               max_disp=max_disp, gamma_c=gamma_c, gamma_p=gamma_p, step=step,
               consistent=consistent, subpixel=subpixel)
     if planes.device.type == "cpu":
-        return _asw_pass_plain(planes, **kw)
+        return _asw_pass_plain(planes, context=context, **kw)
     if planes.device.type != "cuda":
         raise ValueError(f"no ASW kernel for device {planes.device}")
 
@@ -279,17 +297,26 @@ def _select_plain(cost, min_disp, consistent, subpixel):
 
 
 def _asw_pass_plain(planes, *, H, W, win_size, min_disp, max_disp, gamma_c,
-                    gamma_p, step=1, consistent=True, subpixel=False):
+                    gamma_p, step=1, consistent=True, subpixel=False,
+                    context=False):
     """Plain PyTorch version of :func:`_asw_pass`, on any device: the
     twin's cost volume (:func:`.asw_ref._cost_volume`) per frame, then the
-    same selection. Same returns."""
+    same selection. Same returns.
+
+    With ``context`` the volume is taken over all plane rows, the context
+    rows included, and its middle ``H`` rows are kept. A window pixel on a
+    sentinel row then weighs exactly 0 through the exponential, where the
+    whole image's twin masks it out: both add 0.0 to the same sums."""
     pad, left, _ = _pads(win_size, min_disp, max_disp)
-    img = planes[:, :, pad:pad + H, left:left + W].permute(0, 2, 3, 1)
+    rows = slice(None) if context else slice(pad, pad + H)
+    img = planes[:, :, rows, left:left + W].permute(0, 2, 3, 1)
     costs = []
     for fr in img:
         c, _ = _cost_volume(fr[..., 6:9], fr[..., 9:12], fr[..., 0:3],
                             fr[..., 3:6], win_size, gamma_c, gamma_p,
                             min_disp, max_disp, +1, step)
+        if context:
+            c = c[pad:pad + H]
         costs.append(c.permute(2, 0, 1))
     cost = torch.stack(costs).contiguous()
     return (cost,) + _select_plain(cost, min_disp, consistent, subpixel)
@@ -339,28 +366,39 @@ def asw_disparity_batch(imgs1, imgs2, win_size=35, max_disp=16, min_disp=0,
     One kernel launch covers the whole stack; the result is bit-identical
     to per-frame :func:`asw_disparity`.
 
-    Returns (B, H, W) int16, or float32 when ``subpixel``.
+    row_valid : optional (B, H) bool tensor: rows marked False are treated
+        exactly like out-of-image rows (the row-tiled matcher marks the
+        halo rows it received at the image's true boundary so).
+    context : the first and last ``win_size // 2`` rows are window sources
+        only: no disparity is computed for them, and the output has
+        ``H - 2 * (win_size // 2)`` rows.
 
-    ``row_valid`` and ``context`` serve the JAX package's multi-device
-    row tiling, which is not ported yet: they raise NotImplementedError.
+    Returns (B, H_out, W) int16, or float32 when ``subpixel``.
     """
-    if row_valid is not None or context:
-        raise NotImplementedError(
-            "row_valid/context serve multi-device row tiling, which the "
-            "PyTorch port does not have yet")
     if imgs1.dim() != 4 or imgs1.shape[3] != 3 or imgs1.shape != imgs2.shape:
         raise ValueError(
             "Batches must be (B, H, W, 3) BGR with identical shapes!")
     if imgs1.device != imgs2.device:
         raise ValueError(f"images on different devices: {imgs1.device} "
                          f"and {imgs2.device}")
-    H, W = imgs1.shape[1:3]
-    planes = _build_planes(imgs1, imgs2, win_size, min_disp, max_disp)
+    B, H, W = imgs1.shape[:3]
+    if row_valid is not None:
+        row_valid = torch.as_tensor(row_valid, dtype=torch.bool,
+                                    device=imgs1.device)
+        if tuple(row_valid.shape) != (B, H):
+            raise ValueError(f"row_valid must be (B, H) = {(B, H)}, got "
+                             f"{tuple(row_valid.shape)}")
+    h_out = H - 2 * (win_size // 2) if context else H
+    if h_out < 1:
+        raise ValueError(f"context mode needs more than 2 * (win_size // 2)"
+                         f" = {H - h_out} rows, got {H}")
+    planes = _build_planes(imgs1, imgs2, win_size, min_disp, max_disp,
+                           row_valid=row_valid, context=bool(context))
     _, dispL, dispR, csub = _asw_pass(
-        planes, H=H, W=W, win_size=win_size, min_disp=min_disp,
+        planes, H=h_out, W=W, win_size=win_size, min_disp=min_disp,
         max_disp=max_disp, gamma_c=float(gamma_c), gamma_p=float(gamma_p),
         step=int(step), consistent=bool(consistent),
-        subpixel=bool(subpixel))
+        subpixel=bool(subpixel), context=bool(context))
     return _finish(dispL, dispR, csub, W=W, min_disp=min_disp,
                    max_disp=max_disp, consistent=bool(consistent),
                    subpixel=bool(subpixel))
@@ -371,12 +409,16 @@ def asw_disparity(img1, img2, win_size=35, max_disp=16, min_disp=0,
                   subpixel=False, row_valid=None, context=False):
     """ASW disparity map of one (H, W, 3) BGR pair on the pair's device.
 
-    Parameters mirror :func:`simplestereo_tpu.passive.asw_disparity`.
-    Returns (H, W) int16 (float32 when ``subpixel``).
+    Parameters mirror :func:`simplestereo_tpu.passive.asw_disparity`;
+    ``row_valid`` is (H,) here. Returns (H_out, W) int16 (float32 when
+    ``subpixel``), ``H_out = H - 2 * (win_size // 2)`` with ``context``.
     """
     if img1.dim() != 3 or img1.shape[2] != 3 or img1.shape != img2.shape:
         raise ValueError(
             "Images must be 3-channel BGR with identical shapes!")
+    if row_valid is not None:
+        row_valid = torch.as_tensor(row_valid, dtype=torch.bool,
+                                    device=img1.device)[None]
     return asw_disparity_batch(
         img1[None], img2[None], win_size=win_size, max_disp=max_disp,
         min_disp=min_disp, gamma_c=gamma_c, gamma_p=gamma_p,

@@ -20,6 +20,15 @@ of a diagonal path too), and return ``S = sum_r L_r`` summed in
 each column roll 0, +1, -1 (roll 0 only with 4 paths) the downward and the
 upward scan. The recurrence is min and add only, with no multiply that a
 compiler could fuse, so the kernel and the twin agree bit for bit.
+
+For the row-tiled matcher (:mod:`simplestereo_tpu_torch.parallel.sgm`)
+both also run one family of directions at a time (``directions``
+"horizontal", "down" or "up"), each direction's L into its own buffer of a
+workspace (``out``, one buffer a direction, numbered in the summation
+order above), the vertical and diagonal ones from a carried row
+(``carry``, the row before the tile's first row; :func:`carry_of` cuts it
+from the tile before). :func:`sum_paths` then sums the buffers in that
+order.
 """
 
 import torch
@@ -98,6 +107,21 @@ def _plan(B, H, W, D, paths, mode=None):
                 workspace=workspace, grid=grid)
 
 
+def _family(directions, paths):
+    """(first direction, directions, step between them) of a family, in the
+    kernel's numbering (csrc/sgm_kernel.cu: direction): 0, 1 horizontal;
+    2 + 2j down and 3 + 2j up with column roll (0, +1, -1)[j]."""
+    k = 3 if paths >= 8 else 1
+    if directions == "horizontal":
+        return 0, 2, 1
+    if directions == "down":
+        return 2, k, 2
+    if directions == "up":
+        return 3, k, 2
+    raise ValueError(f"directions must be None, 'horizontal', 'down' or "
+                     f"'up', got {directions!r}")
+
+
 def _sgm_step(L_prev, C_cur, P1, P2):
     """One SGM recurrence step, vectorized over (..., D)."""
     m = torch.amin(L_prev, dim=-1, keepdim=True)
@@ -119,7 +143,47 @@ def _roll_cols(a, dx):
     return a
 
 
-def _aggregate(C, P1, P2, paths):
+def _horizontal(C, P1, P2, out):
+    """Both horizontal scans into out[0] (forward) and out[1] (backward):
+    column x of the forward scan and column W-1-x of the backward one in
+    the same step; carry (2, ..., H, D)."""
+    W, D = C.shape[-2:]
+    L = C.new_zeros((2,) + C.shape[:-2] + (D,))
+    for x in range(W):
+        L = _sgm_step(L, torch.stack([C[..., x, :], C[..., W - 1 - x, :]]),
+                      P1, P2)
+        out[0, ..., x, :] = L[0]
+        out[1, ..., W - 1 - x, :] = L[1]
+
+
+def _vertical(C, P1, P2, comps, carry, out):
+    """Vertical and diagonal scans, stacked: ``comps`` lists (buffer,
+    column roll, upward) of each scan; step i takes row i of the downward
+    scans and row H-1-i of the upward ones. ``carry`` (len(comps), ...,
+    W, D) is the row before each scan's first row, rolled like every
+    later carry (zero start when None)."""
+    H = C.shape[-3]
+    L = (C.new_zeros((len(comps),) + C.shape[:-3] + C.shape[-2:])
+         if carry is None else carry)
+    for i in range(H):
+        rolled = torch.stack([_roll_cols(L[j], roll)
+                              for j, (_, roll, _) in enumerate(comps)])
+        c = torch.stack([C[..., H - 1 - i if up else i, :, :]
+                         for _, _, up in comps])
+        L = _sgm_step(rolled, c, P1, P2)
+        for j, (slot, _, up) in enumerate(comps):
+            out[slot, ..., H - 1 - i if up else i, :, :] = L[j]
+
+
+def _sum_plain(L):
+    """L[0] + L[1] + ... + L[n-1], left to right."""
+    S = L[0] + L[1]
+    for j in range(2, L.shape[0]):
+        S = S + L[j]
+    return S
+
+
+def _aggregate(C, P1, P2, paths, directions=None, carry=None, out=None):
     """Sum of SGM path aggregations over 4 or 8 directions (plain twin).
 
     C : (..., H, W, D) float32 cost volume, any leading frame axes.
@@ -129,38 +193,46 @@ def _aggregate(C, P1, P2, paths):
     vertical and diagonal ones one loop over rows (a diagonal is a vertical
     scan whose carry is rolled by one column each step). Each path's L is
     kept whole, so the sum is taken in ``_aggregate``'s order.
-    """
-    H, W, D = C.shape[-3:]
-    # Horizontal: column x of the forward scan and column W-1-x of the
-    # backward one in the same step; carry (2, ..., H, D).
-    L = C.new_zeros((2,) + C.shape[:-2] + (D,))
-    oh = C.new_empty((2,) + C.shape)
-    for x in range(W):
-        L = _sgm_step(L, torch.stack([C[..., x, :], C[..., W - 1 - x, :]]),
-                      P1, P2)
-        oh[0, ..., x, :] = L[0]
-        oh[1, ..., W - 1 - x, :] = L[1]
-    S = oh[0] + oh[1]
-    del oh
 
-    # Vertical and diagonal: row i of the downward scans and row H-1-i of
-    # the upward ones; carry (2k, ..., W, D), component j rolled by
-    # rolls[j % k] columns before each step.
+    ``directions`` "horizontal", "down" or "up" runs that family only,
+    each direction's L into its buffer of ``out`` ((4 or 8, ...) + C's
+    shape, made when None) and returns ``out``; ``carry`` (directions of
+    the family, ..., W, D) starts the downward or upward scans from a
+    carried row (see the module's docstring).
+    """
     rolls = (0, 1, -1) if paths >= 8 else (0,)
     k = len(rolls)
-    L = C.new_zeros((2 * k,) + C.shape[:-3] + (W, D))
-    ov = C.new_empty((2 * k,) + C.shape)
-    for i in range(H):
-        rolled = torch.stack([_roll_cols(L[j], rolls[j % k])
-                              for j in range(2 * k)])
-        c = torch.stack([C[..., i, :, :]] * k + [C[..., H - 1 - i, :, :]] * k)
-        L = _sgm_step(rolled, c, P1, P2)
-        ov[:k, ..., i, :, :] = L[:k]
-        ov[k:, ..., H - 1 - i, :, :] = L[k:]
-    for j in range(k):
-        S = S + ov[j]
-        S = S + ov[k + j]
-    return S
+    if directions is None:
+        if carry is not None:
+            raise ValueError("a carry needs directions='down' or 'up'")
+        L = C.new_empty((2 + 2 * k,) + C.shape)
+        _horizontal(C, P1, P2, L)
+        _vertical(C, P1, P2, [(2 + 2 * j + up, rolls[j], up)
+                              for j in range(k) for up in (0, 1)], None, L)
+        return _sum_plain(L)
+    dir0, _, _ = _family(directions, paths)
+    if out is None:
+        out = C.new_empty((2 + 2 * k,) + C.shape)
+    if directions == "horizontal":
+        if carry is not None:
+            raise ValueError("the horizontal scans take no carry")
+        _horizontal(C, P1, P2, out)
+    else:
+        _vertical(C, P1, P2, [(dir0 + 2 * j, rolls[j], dir0 == 3)
+                              for j in range(k)], carry, out)
+    return out
+
+
+def carry_of(L, directions, paths):
+    """The rows a family's scans hand the next tile: each downward
+    direction's L at the tile's last row, or each upward one's at its first
+    row. (directions of the family, ..., W, D), contiguous."""
+    dir0, n, step = _family(directions, paths)
+    if directions == "horizontal":
+        raise ValueError("the horizontal scans carry nothing across tiles")
+    row = L.shape[-3] - 1 if directions == "down" else 0
+    return L[dir0:dir0 + n * step:step, ..., row, :, :].clone(
+        memory_format=torch.contiguous_format)
 
 
 def _check_volume(C):
@@ -175,11 +247,38 @@ def _check_volume(C):
         raise ValueError("C must be contiguous")
 
 
-def aggregate(C, P1, P2, paths, plan=None):
+def _check_family(C, paths, directions, carry, out):
+    """Validate (and make) the workspace ``out`` and the ``carry`` of a
+    family call; returns ``out``."""
+    _, n, _ = _family(directions, paths)
+    shape = ((8 if paths >= 8 else 4),) + tuple(C.shape)
+    if out is None:
+        out = torch.empty(shape, dtype=C.dtype, device=C.device)
+    if (tuple(out.shape) != shape or out.dtype != torch.float32
+            or not out.is_contiguous() or out.device != C.device):
+        raise ValueError(f"out must be a contiguous float32 {shape} tensor "
+                         f"on {C.device}")
+    if carry is not None:
+        want = (n,) + tuple(C.shape[:-3]) + tuple(C.shape[-2:])
+        if (tuple(carry.shape) != want or carry.dtype != torch.float32
+                or not carry.is_contiguous() or carry.device != C.device):
+            raise ValueError(f"carry must be a contiguous float32 {want} "
+                             f"tensor on {C.device}")
+    return out
+
+
+def aggregate(C, P1, P2, paths, plan=None, *, directions=None, carry=None,
+              out=None):
     """SGM path sum S of the cost volume C, the same shape as C.
 
     C : (H, W, D) or (B, H, W, D) float32, contiguous, D innermost.
     P1, P2 : float penalties. paths : 8 for 8 directions, fewer for 4.
+
+    ``directions`` "horizontal", "down" or "up": that family's L, each
+    direction into its buffer of ``out`` (a contiguous (4 or 8,) + C.shape
+    workspace, made when None), which is returned; ``carry`` (k, ...,
+    W, D), the row before the first row of the downward (upward) scans. See
+    the module's docstring and :func:`sum_paths`.
 
     A CUDA tensor launches the kernels as ``plan`` lays them out (default
     :func:`_plan` of this call's shapes; a stack of more frames than a
@@ -189,14 +288,20 @@ def aggregate(C, P1, P2, paths, plan=None):
     """
     global launches
     _check_volume(C)
+    if directions is not None:
+        out = _check_family(C, paths, directions, carry, out)
+    elif carry is not None:
+        raise ValueError("a carry needs directions='down' or 'up'")
     if C.device.type == "cpu":
-        return _aggregate(C, P1, P2, paths)
+        return _aggregate(C, P1, P2, paths, directions, carry, out)
     if C.device.type != "cuda":
         raise ValueError(f"no SGM kernel for device {C.device}")
 
     dev = C.device
     B = C.shape[0] if C.dim() == 4 else 1
     H, W, D = C.shape[-3:]
+    if directions is not None:
+        return _scan_family(C, P1, P2, paths, plan, directions, carry, out)
     if plan is None:
         plan = _plan(B, H, W, D, paths)
     S = torch.empty_like(C)
@@ -216,5 +321,64 @@ def aggregate(C, P1, P2, paths, plan=None):
         if err != 0:
             raise RuntimeError("SGM kernel launch failed: "
                                + lib.sgm_error_string(err).decode())
+    launches += 1
+    return S
+
+
+def _scan_family(C, P1, P2, paths, plan, directions, carry, out):
+    """The kernel side of ``aggregate(..., directions=...)``: one launch of
+    the line kernel for the family's directions (the first version, one
+    launch a direction, for D > 256), frames in pieces of 65,535."""
+    global launches
+    dev = C.device
+    B = C.shape[0] if C.dim() == 4 else 1
+    H, W, D = C.shape[-3:]
+    if plan is None:
+        plan = _plan(B, H, W, D, paths,
+                     mode=None if D <= LINES_D_MAX else "generic")
+    dir0, n, step = _family(directions, paths)
+    vec = (plan["vec"] and C.data_ptr() % 16 == 0
+           and out.data_ptr() % 16 == 0)
+    frame = H * W * D
+    lib = _build.load_library("sgm_kernel")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for b0, b1 in _build.frame_pieces(B, _build.GRID_YZ_MAX):
+        err = lib.sgm_scan(
+            C.data_ptr() + b0 * frame * 4,
+            out.data_ptr() + (dir0 * B + b0) * frame * 4,
+            None if carry is None else carry.data_ptr() + b0 * n * W * D * 4,
+            b1 - b0, H, W, D, float(P1), float(P2), dir0, n, step,
+            step * B * frame, plan["npl"], plan["group"], int(vec),
+            dev.index, stream)
+        if err != 0:
+            raise RuntimeError("SGM kernel launch failed: "
+                               + lib.sgm_error_string(err).decode())
+    launches += 1
+    return out
+
+
+def sum_paths(L):
+    """S = L[0] + L[1] + ... + L[n-1], left to right: the path sum of a
+    workspace that :func:`aggregate` filled family by family, in
+    ``_aggregate``'s order. A CUDA tensor runs the kernel's sum (one
+    launch, counted in ``launches``); a CPU tensor the plain sum."""
+    global launches
+    if (L.dim() < 4 or L.shape[0] < 2 or L.dtype != torch.float32
+            or not L.is_contiguous()):
+        raise ValueError(f"L must be a contiguous float32 (n >= 2, ..., H, "
+                         f"W, D) tensor, got {L.dtype} {tuple(L.shape)}")
+    if L.device.type == "cpu":
+        return _sum_plain(L)
+    if L.device.type != "cuda":
+        raise ValueError(f"no SGM kernel for device {L.device}")
+    dev = L.device
+    S = torch.empty_like(L[0])
+    vol = L[0].numel()
+    lib = _build.load_library("sgm_kernel")
+    err = lib.sgm_sum(L.data_ptr(), S.data_ptr(), vol, vol, L.shape[0],
+                      dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError("SGM kernel launch failed: "
+                           + lib.sgm_error_string(err).decode())
     launches += 1
     return S

@@ -18,13 +18,7 @@ import pytest
 
 import simplestereo_tpu
 
-A8 = ("multi-GPU matching with torch.distributed: ROADMAP section A.8, "
-      "the slice after this one")
 ALLOWED_MODULES = {
-    "simplestereo_tpu.parallel": A8,
-    "simplestereo_tpu.parallel.ftp": A8,
-    "simplestereo_tpu.parallel.gsw": A8,
-    "simplestereo_tpu.parallel.sgm": A8,
     "simplestereo_tpu.native._ply": (
         "the JAX package's CPython extension module; the port builds the "
         "same C++ as a plain C library bound with ctypes "

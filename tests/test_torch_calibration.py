@@ -21,7 +21,8 @@
   another order; the measured gap (5.3e-7, 1.2e-4 px, 6.7e-5, 8.4e-7
   rad, 1.2e-4) is what the JAX package shows between its own 8- and
   1-device meshes (1.3e-6, 1.2e-4 px, 1.5e-4, 4.5e-7 rad, 1.4e-4). A
-  mesh raises NotImplementedError.
+  mesh that is not a DeviceMesh raises TypeError (the mesh form is
+  tested in tests/test_torch_parallel_sgm_ftp.py).
 - The helpers (object grid, SVG, F from projections, grey loading) equal.
 """
 
@@ -315,6 +316,6 @@ def test_sharded_gauss_newton_meets_bounds(synth):
     assert np.abs(de - j_d).max() <= 1e-3
     assert np.abs(poses[:, :3] - j_poses[:, :3]).max() <= 5e-6
     assert np.abs(poses[:, 3:] - j_poses[:, 3:]).max() <= 2e-3
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError):
         tsh.calibrate_camera_sharded(objs, np.stack(imgs), K0, np.zeros(5),
                                      mesh=object(), device="cpu")

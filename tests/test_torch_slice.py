@@ -121,9 +121,15 @@ def test_stereo_asw_api():
         m.compute(img1[..., 0], img2[..., 0])
     with pytest.raises(ValueError):
         m.computeBatch(img1, img2)
-    with pytest.raises(NotImplementedError):
+    # context mode: the first and last win // 2 rows are window sources
+    # only, so the default window (35) needs more than 34 rows
+    with pytest.raises(ValueError):
         asw_cuda.asw_disparity(torch.tensor(img1), torch.tensor(img2),
                                context=True)
+    ctx = asw_cuda.asw_disparity(torch.tensor(img1), torch.tensor(img2),
+                                 win_size=7, max_disp=6, min_disp=1,
+                                 context=True)
+    assert ctx.shape == (img1.shape[0] - 6, img1.shape[1])
 
 
 def test_cuda_device_raises_without_card():
