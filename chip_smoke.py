@@ -95,7 +95,16 @@ all started together) and drives the port's main paths:
   its S ``torch.equal`` to the whole volume's; then every ``parallel``
   path (tiled ASW, SGM, GSW, the sharded FTP cloud, the Gauss-Newton on a
   mesh, ``dryrun_multichip``) on an explicit one-rank NCCL group, each
-  equal to its single-card call, with the kernels' launches counted.
+  equal to its single-card call, with the kernels' launches counted;
+- the image formats on the card's host, which has no Pillow: every
+  fixture of ``tests/golden/torch_imgio/`` (PNG of every colour type and
+  depth, Adam7; BMP of every header, depth and RLE; TIFF strips, tiles,
+  planar, big-endian, PackBits, LZW, Deflate, predictor; progressive
+  JPEG) equal to the arrays Pillow gave for it; 12 side-by-side 1280x720
+  pairs written by ``imgio`` as BMP and as TIFF, each folder through
+  ``utils.Capture`` into ``computeBatch`` on the ASW kernel, the maps
+  equal to the in-memory frames'; ms to decode a 1280x720 frame in each
+  format and the folders' pairs/s.
 
 Every kernel's JSON record carries ``bound_ms``, the least time the card
 could take for the kernel's work at the timed shape: the larger of its
@@ -108,8 +117,10 @@ is printed. The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.
 
 Needs a CUDA card, nvcc, g++ and the repository checkout; imports no
-JAX, Pillow or matplotlib. Phase 24 writes its videos and traces under
-the checkout's ``build/chip_smoke_stream/`` and deletes them at the end.
+JAX, Pillow or matplotlib. Phases 24 and 29 write their videos, images
+and traces under the checkout's ``build/chip_smoke_stream/`` and delete
+them at the end; phase 29 imports ``tests/image_files.py`` (numpy and
+zlib only) to build the 1280x720 files the port cannot write.
 """
 
 import contextlib
@@ -3013,6 +3024,221 @@ def distributed_phase(dev, card):
     return counts
 
 
+# Phase 29: the image formats of ``imgio`` on the card's host, which has
+# no Pillow: (a) every committed fixture (tests/golden/torch_imgio/, one
+# small file of each format and variant, written by Pillow or built by
+# tests/image_files.py) decodes to the arrays Pillow gave when it was
+# made; (b) folders of BMP and TIFF frames, written by the port's own
+# imwrite, stream through Capture into StereoASW(**MAIN).computeBatch on
+# K1 (both lossless: the maps must equal those of the frames in memory);
+# (c) host-clock ms to decode one 1280x720 frame in each format.
+FORMAT_SHAPE = (720, 1280)
+FORMAT_SEED = 29
+FORMAT_EXTS = (".bmp", ".tif")
+FORMAT_REPS = 6      # decodes timed a format, after one warm decode
+
+
+def _fixtures():
+    """tests/ on sys.path (image_files.py builds the 720p files), the
+    fixtures' folder and its fixtures.json."""
+    import pathlib
+    tests = pathlib.Path(__file__).resolve().parent / "tests"
+    if str(tests) not in sys.path:
+        sys.path.insert(0, str(tests))
+    folder = tests / "golden" / "torch_imgio"
+    return folder, json.loads((folder / "fixtures.json").read_text())
+
+
+def same_array(a, b, where):
+    check(a.dtype == b.dtype and a.shape == b.shape
+          and np.array_equal(a, b), f"{where}: {a.dtype}{a.shape} differs "
+          f"from {b.dtype}{b.shape}")
+
+
+def fixtures_part():
+    """Phase 29 (a): every fixture against Pillow's stored arrays."""
+    from simplestereo_tpu_torch import imgio
+    folder, meta = _fixtures()
+    import image_files
+    with np.load(folder / "pillow.npz") as z:
+        stored = {k: z[k] for k in z.files}
+    for name, fname in sorted(meta["files"].items()):
+        path = str(folder / fname)
+        samples = stored[f"{name}/samples"]
+        same_array(imgio.read_samples(path), samples, f"fixture {name}")
+        same_array(imgio.imread(path, grayscale=True),
+                   stored.get(f"{name}/L", samples), f"fixture {name} gray")
+        same_array(imgio.imread(path),
+                   stored.get(f"{name}/RGB", samples)[:, :, ::-1],
+                   f"fixture {name} colour")
+    for name, rec in meta["large"].items():
+        path = str(folder / rec["file"])
+        check(image_files.digest(imgio.read_samples(path)) == rec["samples"]
+              and image_files.digest(imgio.imread(path, True)) == rec["L"],
+              f"fixture {name}: digest differs from Pillow's")
+    kinds = sorted({n.split("-")[0] for n in meta["files"]})
+    return len(meta["files"]) + len(meta["large"]), kinds, meta["pillow"]
+
+
+def decode_files(root, frame):
+    """{format: (path, what its decode must equal)}: one 1280x720 frame
+    in each timed format, under root. The port writes 8-bit PNG, BMP and
+    raw TIFF; tests/image_files.py builds the rest (16-bit gray, palette
+    and Adam7 PNG; LZW and Deflate TIFF with the predictor, in strips of
+    17 rows as libtiff writes them); the progressive JPEG is the
+    committed fixture (Pillow's), held to its digest."""
+    from simplestereo_tpu_torch import imgio
+    folder, meta = _fixtures()
+    import image_files
+    rgb = frame[:, :, ::-1]
+    g16 = frame[:, :, 1].astype(np.uint16) * 257 + frame[:, :, 0]
+    pal = np.random.default_rng(FORMAT_SEED).integers(0, 256, (256, 3))
+    out = {}
+
+    def put(name, ext, data, expect):
+        p = root / f"{name}{ext}"
+        p.write_bytes(data)
+        out[name] = (str(p), expect)
+
+    for name, ext in (("PNG 8-bit RGB", ".png"), ("BMP 24-bit", ".bmp"),
+                      ("TIFF raw", ".tif")):
+        p = root / f"{name}{ext}"
+        imgio.imwrite(str(p), frame)
+        out[name] = (str(p), rgb)
+    put("PNG 16-bit gray", ".png", image_files.png(g16[:, :, None], 16, 0),
+        g16)
+    put("PNG palette", ".png", image_files.png(frame[:, :, :1], 8, 3, pal),
+        frame[:, :, 0])
+    put("PNG Adam7 RGB", ".png", image_files.png(rgb, 8, 2, interlace=True),
+        rgb)
+    put("TIFF LZW predictor", ".tif", image_files.tiff(
+        rgb, 8, 2, comp=5, predictor=2, rows_per_strip=17), rgb)
+    put("TIFF Deflate predictor", ".tif", image_files.tiff(
+        rgb, 8, 2, comp=8, predictor=2, rows_per_strip=17), rgb)
+    rec = meta["large"]["jpg-progressive-1280x720"]
+    out["JPEG progressive"] = (str(folder / rec["file"]), rec["samples"])
+    return out
+
+
+def formats_phase(dev, card):
+    """Phase 29: fixtures, BMP and TIFF capture folders through K1, and
+    decode times of 1280x720 frames."""
+    from simplestereo_tpu_torch import imgio, profiling, utils
+    from simplestereo_tpu_torch.passive import StereoASW, asw_cuda
+
+    t0 = time.perf_counter()
+    n_fix, kinds, pil = fixtures_part()
+    import image_files
+    fix_s = time.perf_counter() - t0
+
+    h, w = FORMAT_SHAPE
+    root = stream_dir()
+    frames, _, shifts = stream_frames(h, w, FORMAT_SEED)
+    index = {f.tobytes(): i for i, f in enumerate(frames)}
+    check(len(index) == len(frames), "phase 29: two stream frames are equal")
+    t0 = time.perf_counter()
+    folders = {}
+    for ext in FORMAT_EXTS:
+        folders[ext] = root / ext[1:]
+        folders[ext].mkdir()
+        for i, f in enumerate(frames):
+            imgio.imwrite(str(folders[ext] / f"{i:03d}{ext}"), f)
+    write_s = time.perf_counter() - t0
+    m = StereoASW(device=dev, **MAIN)
+    L0 = np.stack([f[:, :w] for f in frames])
+    R0 = np.stack([f[:, w:] for f in frames])
+    ref = np.concatenate([m.computeBatch(L0[a:a + STREAM_B],
+                                         R0[a:a + STREAM_B])
+                          for a in range(0, len(frames), STREAM_B)])
+    pad = MAIN["winSize"] // 2
+    inner = ref[:, pad:-pad, MAIN["maxDisparity"] + pad:-pad]
+    share = float((inner == shifts[:, None, None]).mean())
+    check(share >= STREAM_BAR, f"phase 29 in-memory maps: {share:.2%} of "
+          "the interior at the frames' shifts")
+
+    report = {}
+    asw_cuda.launches = 0
+    with calls_of(asw_cuda, "_asw_pass") as k1_calls:
+        for ext in FORMAT_EXTS:
+            name = f"{w}x{h} {ext[1:].upper()}"
+            pairs = profiling.Throughput(name, unit="pairs")
+            kept, stages = [], []
+
+            def batch(cap):
+                t0 = time.perf_counter()
+                got = [wait_frame(cap) for _ in range(STREAM_B)]
+                t1 = time.perf_counter()
+                L = np.stack([g[:, :w] for g in got])
+                R = np.stack([g[:, w:] for g in got])
+                t2 = time.perf_counter()
+                kept.append((got, m.computeBatch(L, R)))
+                stages.append((t1 - t0, t2 - t1, time.perf_counter() - t2))
+
+            t_stream = time.perf_counter()
+            with utils.Capture(str(folders[ext])) as cap:
+                check(cap.isFile, f"{name}: Capture is not a file sequence")
+                batch(cap)  # warm
+                for _ in range(STREAM_TIMED):
+                    with pairs.measure(STREAM_B):
+                        batch(cap)
+            stream_s = time.perf_counter() - t_stream
+            # Each grabbed frame is one of the written ones, byte for byte,
+            # and its map is that frame's map in memory.
+            seen = set()
+            for got, disp in kept:
+                for g, d in zip(got, disp):
+                    k = index.get(g.tobytes())
+                    check(k is not None, f"{name}: a grabbed frame equals "
+                          "no written frame")
+                    check(np.array_equal(d, ref[k]), f"{name}: the map of "
+                          f"frame {k} differs from the in-memory map")
+                    seen.add(k)
+            med = [statistics.median(st[i] for st in stages[1:]) * 1e3
+                   for i in range(3)]
+            report[name] = (pairs.report()["pairs_per_s"], len(seen),
+                            stream_s, med)
+    n = asw_cuda.launches
+    calls = len(FORMAT_EXTS) * (1 + STREAM_TIMED)
+    check(n == calls and len(k1_calls) == calls,
+          f"phase 29: {n} K1 launches ({len(k1_calls)} calls seen), "
+          f"expected {calls}")
+
+    t0 = time.perf_counter()
+    files = decode_files(root, frames[0][:, :w])
+    build_s = time.perf_counter() - t0
+    times = {}
+    for name, (path, expect) in files.items():
+        got = imgio.read_samples(path)
+        if isinstance(expect, str):
+            check(image_files.digest(got) == expect,
+                  f"decode {name}: digest differs from Pillow's")
+        else:
+            same_array(got, expect, f"decode {name}")
+        times[name] = host_ms(imgio.read_samples,
+                              [(path,)] * (FORMAT_REPS + 1))[0]
+    import shutil
+    shutil.rmtree(root, ignore_errors=True)
+    print(f"phase 29 image formats: (a) {n_fix} fixtures ({', '.join(kinds)}"
+          f"; arrays of Pillow {pil}) equal on this host in {fix_s:.2f} s | "
+          f"(b) {len(frames)} side-by-side {2 * w}x{h} frames written by "
+          f"imgio as " + " and ".join(FORMAT_EXTS) + f" in {write_s:.2f} s, "
+          f"each folder through Capture into StereoASW(35, 14, 4, 15, 17.5, "
+          f"consistent).computeBatch B={STREAM_B} (one warm batch, "
+          f"{STREAM_TIMED} timed), maps equal to the in-memory frames' "
+          f"({share:.2%} of their interior at the shift), K1 launches {n}: "
+          + ", ".join(f"{k} {v[0]:.1f} pairs/s ({v[1]} of {len(frames)} "
+                      f"frames seen; host ms a batch: grab wait {v[3][0]:.2f}"
+                      f", stack {v[3][1]:.2f}, computeBatch {v[3][2]:.2f}; "
+                      f"stream wall {v[2]:.2f} s)"
+                      for k, v in report.items())
+          + f" | (c) ms to decode one {w}x{h} frame (imgio.read_samples, "
+          f"host clock, median of {FORMAT_REPS}; files built in "
+          f"{build_s:.2f} s): "
+          + ", ".join(f"{k} {v:.2f}" for k, v in times.items())
+          + f" | {card}")
+    return report, times
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False: needs a "
@@ -3271,6 +3497,7 @@ def main():
     carry_entry = timed("27", k2_carry_phase, dev, card)
     counts = timed("28", distributed_phase, dev, card)
     carry_entry["launches"] = counts["sgm"]
+    timed("29", formats_phase, dev, card)
     print("phase wall times (host clock, s, build included in 1-6): "
           + ", ".join(f"{k} {v:.1f}" for k, v in walls.items())
           + f"; total {time.perf_counter() - start:.1f} | {card}")

@@ -26,8 +26,9 @@ The sources, one per TPU kernel of the JAX package:
 
 The host sources are built the same way with ``g++`` (``HOST_SOURCES``):
 ``native/_ply.cpp``, the PLY writer and parser, ``native/_png.cpp``,
-the PNG row filters undone, and ``native/_jpeg.cpp``, the baseline JPEG
-codec.
+the PNG row filters undone, ``native/_jpeg.cpp``, the JPEG codec
+(baseline and progressive decoding), ``native/_tiff.cpp``, TIFF's LZW and
+PackBits decoders, and ``native/_bmp.cpp``, BMP's RLE decoder.
 
 Pointers and the stream are passed as ``c_void_p``, integers as ``c_int``
 (``c_longlong`` for sizes of the host libraries), floats as ``c_float`` or
@@ -54,7 +55,9 @@ GXX_FLAGS = ("-O2", "-shared", "-fPIC", "-std=c++17", "-pthread")
 # Host libraries: name -> source, built with g++ and GXX_FLAGS.
 HOST_SOURCES = {"ply": _CSRC.parent / "native" / "_ply.cpp",
                 "png": _CSRC.parent / "native" / "_png.cpp",
-                "jpeg": _CSRC.parent / "native" / "_jpeg.cpp"}
+                "jpeg": _CSRC.parent / "native" / "_jpeg.cpp",
+                "tiff": _CSRC.parent / "native" / "_tiff.cpp",
+                "bmp": _CSRC.parent / "native" / "_bmp.cpp"}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _L, _D, _S = ctypes.c_longlong, ctypes.c_double, ctypes.c_char_p
@@ -125,6 +128,16 @@ _SIGNATURES = {
         # img, h, w, c, bgr, quality, hs, vs, out, cap
         "jpeg_encode": ([_P] + [_I] * 7 + [_P, _L], _L),
         "jpeg_error": ([], ctypes.c_char_p),
+    },
+    "tiff": {
+        # in, n, out, cap
+        "tiff_lzw": ([_P, _L, _P, _L], _L),
+        "tiff_packbits": ([_P, _L, _P, _L], _L),
+        "tiff_error": ([], ctypes.c_char_p),
+    },
+    "bmp": {
+        # in, n, start, rle4, width, out, cap
+        "bmp_rle": ([_P, _L, _L, _I, _L, _P, _L], _L),
     },
 }
 

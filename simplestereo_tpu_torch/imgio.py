@@ -2,71 +2,55 @@
 imgio
 =====
 
-Minimal image I/O without Pillow: the port of :mod:`simplestereo_tpu.imgio`.
+Image I/O without Pillow: the port of :mod:`simplestereo_tpu.imgio`,
+which reads and writes through Pillow. The port reads what the JAX
+package reads in the formats a stereo or scanning rig produces, and gives
+the same arrays:
 
-Reads 8-bit, non-interlaced PNG (gray, gray + alpha, RGB, RGBA), baseline
-JPEG and binary PGM/PPM (P5/P6, maxval 255); writes 8-bit gray or colour
-PNG, JPEG (quality 75, 4:2:0, Pillow's defaults) and P5/P6. zlib comes
-from Python's standard library; the PNG row filters are undone and JPEG is
-coded by host C++ (:mod:`.native`, built at first use). Any other format
-(16-bit or palette PNG, interlaced PNG, progressive or arithmetic-coded
-JPEG, ...) raises ``ValueError`` naming it.
+- PNG: every colour type and bit depth (gray 1/2/4/8/16, RGB 8/16,
+  palette 1/2/4/8, gray + alpha 8/16, RGBA 8/16), plain or
+  Adam7-interlaced (:mod:`.formats.png`);
+- BMP: core, info, V4 and V5 headers; 1/4/8-bit palette (raw, RLE8,
+  RLE4), 16, 24 and 32-bit (raw or bit fields); bottom-up or top-down
+  (:mod:`.formats.bmp`);
+- TIFF: the first image; strips or tiles; none, PackBits, LZW or Deflate,
+  predictor 2; planar 1 or 2; bilevel, 2/4/8/16-bit gray, gray + alpha,
+  RGB and RGBA at 8 and 16 bits, palette (:mod:`.formats.tiff`);
+- JPEG: baseline and progressive (Huffman), gray or YCbCr/RGB, decoded
+  by the host C++ of :mod:`.native` to libjpeg's pixels;
+- binary PGM/PPM (P5/P6, maxval 255).
+
+Refused, each with a ``ValueError`` naming the format: GIF, WebP,
+CMYK/YCCK, arithmetic-coded, 12-bit, lossless and hierarchical JPEG,
+JPEG-in-TIFF, float and 32-bit integer TIFF (and the rarer layouts each
+format module lists), and anything else.
+
+Writes ``.png`` (8-bit), ``.jpg``/``.jpeg`` (baseline, quality 75, 4:2:0,
+Pillow's defaults), ``.bmp`` and ``.tif``/``.tiff`` (uncompressed, byte
+for byte what Pillow's ``Image.save`` writes) and ``.pgm``/``.ppm``/
+``.pnm`` (P5/P6).
 
 Convention, as in the JAX package (which reads through Pillow) and the
 reference (``cv2.imread``): colour images are **BGR** uint8 arrays.
-``grayscale=True`` gives what Pillow's ``convert("L")`` gives: ITU-R 601
-luma in fixed point, ``(R*19595 + G*38470 + B*7471 + 0x8000) >> 16``.
-Alpha is dropped, not composited, as Pillow's ``convert`` drops it.
+:func:`imread` converts as Pillow's ``convert`` does: ``grayscale=True``
+gives ``convert("L")`` (ITU-R 601 luma in fixed point, ``(R*19595 +
+G*38470 + B*7471 + 0x8000) >> 16``, of the palette's colours for a
+palette file), colour gives ``convert("RGB")`` (the palette's colours;
+gray repeated); alpha is dropped, not composited; 16-bit gray is clipped
+at 255, not scaled (so a 16-bit capture read with ``grayscale=True``
+saturates, as it does in the JAX package); bilevel is 0 or 255.
+:func:`read_samples` gives the file's own samples, as
+``np.asarray(Image.open(path))`` does.
 """
 
 import os
-import struct
 import zlib
+from struct import error as struct_error
 
 import numpy as np
 
 from . import native
-
-_PNG_SIG = b"\x89PNG\r\n\x1a\n"
-# PNG colour type -> channels (0 gray, 2 RGB, 3 palette, 4 gray + alpha,
-# 6 RGBA).
-_PNG_CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}
-
-
-def _read_png(data):
-    """(H, W, C) uint8 samples of a PNG file's bytes, C in 1..4."""
-    pos = len(_PNG_SIG)
-    ihdr = None
-    idat = []
-    while pos + 8 <= len(data):
-        n, kind = struct.unpack(">I4s", data[pos:pos + 8])
-        body = data[pos + 8:pos + 8 + n]
-        if len(body) != n:
-            raise ValueError("truncated PNG chunk")
-        pos += 12 + n
-        if kind == b"IHDR":
-            ihdr = struct.unpack(">IIBBBBB", body)
-        elif kind == b"IDAT":
-            idat.append(body)
-        elif kind == b"IEND":
-            break
-    if ihdr is None:
-        raise ValueError("PNG without an IHDR chunk")
-    w, h, depth, ctype, comp, filt, interlace = ihdr
-    if ctype == 3:
-        raise ValueError("palette PNG (colour type 3) is not supported")
-    if ctype not in _PNG_CHANNELS:
-        raise ValueError(f"PNG colour type {ctype} is not supported")
-    if depth != 8:
-        raise ValueError(f"{depth}-bit PNG is not supported (8-bit only)")
-    if interlace != 0:
-        raise ValueError("interlaced (Adam7) PNG is not supported")
-    if comp != 0 or filt != 0:
-        raise ValueError(f"PNG compression {comp} / filter method {filt} "
-                         "is not supported")
-    c = _PNG_CHANNELS[ctype]
-    raw = zlib.decompress(b"".join(idat))
-    return native.png_unfilter(raw, h, w * c, c).reshape(h, w, c)
+from .formats import bmp, png, reversed_rgb, tiff
 
 
 def _pnm_tokens(data, count):
@@ -96,41 +80,66 @@ def _read_pnm(data):
         raise ValueError(f"PGM/PPM with maxval {maxval} is not supported "
                          "(8-bit, maxval 255 only)")
     raster = np.frombuffer(data, np.uint8, h * w * c, pos)
-    return raster.reshape(h, w, c)
+    return raster.reshape((h, w) if c == 1 else (h, w, c)), \
+        "L" if c == 1 else "RGB", None
+
+
+def _read_jpeg(data):
+    img = native.jpeg_decode(data, bgr=False)
+    return img, "L" if img.ndim == 2 else "RGB", None
 
 
 def _format(data):
-    if data.startswith(_PNG_SIG):
-        return "png"
-    if data[:2] in (b"P5", b"P6"):
-        return "pnm"
+    """The decoder of ``data``'s format, or the format's name."""
+    if data.startswith(png.SIGNATURE):
+        return png.decode
+    if data[:2] == b"BM":
+        return bmp.decode
+    if data[:4] in (b"II*\x00", b"MM\x00*", b"II+\x00", b"MM\x00+"):
+        return tiff.decode
     if data[:2] == b"\xff\xd8":
-        return "JPEG"
+        return _read_jpeg
+    if data[:2] in (b"P5", b"P6"):
+        return _read_pnm
+    if data[:6] in (b"GIF87a", b"GIF89a"):
+        return "GIF"
+    if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
+        return "WebP"
     if data[:2] in (b"P1", b"P2", b"P3", b"P4"):
         return f"PNM {data[:2].decode()} (plain or bitmap)"
     return "unknown"
 
 
-def read_samples(path):
-    """(H, W, C) uint8 samples of an image file as it stores them: C = 1
-    (gray), 2 (gray + alpha), 3 (RGB) or 4 (RGBA), colour in RGB order, as
-    ``np.asarray(Image.open(path))`` gives them (with a trailing axis of 1
-    for gray)."""
+def _decode(path):
+    """(array, mode, palette) of an image file; see :mod:`.formats`."""
     with open(path, "rb") as f:
         data = f.read()
     fmt = _format(data)
-    if fmt == "png":
-        return _read_png(data)
-    if fmt == "pnm":
-        return _read_pnm(data)
-    if fmt == "JPEG":
-        try:
-            img = native.jpeg_decode(data, bgr=False)
-        except ValueError as e:
-            raise ValueError(f"{path!r}: {e}") from None
-        return img[:, :, None] if img.ndim == 2 else img
-    raise ValueError(f"{path!r}: {fmt} image format is not supported "
-                     "(8-bit PNG, baseline JPEG, PGM and PPM only)")
+    if isinstance(fmt, str):
+        raise ValueError(f"{path!r}: {fmt} image format is not supported "
+                         "(PNG, JPEG, BMP, TIFF, PGM and PPM only)")
+    try:
+        return fmt(data)
+    except ValueError as e:
+        raise ValueError(f"{path!r}: {e}") from None
+    except (IndexError, struct_error, zlib.error) as e:
+        raise ValueError(f"{path!r}: corrupt or truncated file ({e})") \
+            from None
+
+
+def read_samples(path):
+    """The samples of an image file as it stores them, as
+    ``np.asarray(Image.open(path))`` gives them: (H, W) for one band, (H,
+    W, C) for more, colour in RGB(A) order; bool for bilevel files, uint16
+    for 16-bit gray (``>u2`` for a big-endian TIFF's), the palette indices
+    for a palette file, uint8 otherwise."""
+    return _decode(path)[0]
+
+
+def _luma(rgb):
+    rgb = rgb.astype(np.uint32)
+    return ((rgb[..., 0] * 19595 + rgb[..., 1] * 38470
+             + rgb[..., 2] * 7471 + 0x8000) >> 16).astype(np.uint8)
 
 
 def imread(path, grayscale=False):
@@ -148,45 +157,36 @@ def imread(path, grayscale=False):
     numpy.ndarray
         (H, W) uint8 if grayscale, else (H, W, 3) uint8 BGR.
     """
-    img = read_samples(path)
-    if img.shape[2] in (2, 4):  # drop alpha
-        img = img[:, :, :img.shape[2] - 1]
+    arr, mode, palette = _decode(path)
+    if mode == "P":
+        return (_luma(palette) if grayscale else palette[:, ::-1])[arr]
+    if arr.ndim == 2:  # 1, L, I;16, I;16B
+        if mode == "1":
+            g = arr.astype(np.uint8) * np.uint8(255)
+        elif arr.dtype != np.uint8:
+            g = np.minimum(arr, 255).astype(np.uint8)
+        else:
+            g = arr
+        g = np.ascontiguousarray(g)
+        return g if grayscale else np.repeat(g[:, :, None], 3, axis=2)
+    if mode == "LA":
+        g = np.ascontiguousarray(arr[:, :, 0])
+        return g if grayscale else np.repeat(g[:, :, None], 3, axis=2)
     if grayscale:
-        if img.shape[2] == 1:
-            return np.ascontiguousarray(img[:, :, 0])
-        rgb = img.astype(np.uint32)
-        return ((rgb[:, :, 0] * 19595 + rgb[:, :, 1] * 38470
-                 + rgb[:, :, 2] * 7471 + 0x8000) >> 16).astype(np.uint8)
-    if img.shape[2] == 1:
-        return np.repeat(img, 3, axis=2)
-    return np.ascontiguousarray(img[:, :, ::-1])  # RGB -> BGR
-
-
-def _png_chunk(kind, body):
-    return (struct.pack(">I", len(body)) + kind + body
-            + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
-
-
-def _encode_png(arr):
-    h, w = arr.shape[:2]
-    ctype = 0 if arr.ndim == 2 else 2
-    rows = arr.reshape(h, -1)
-    raw = np.concatenate([np.zeros((h, 1), np.uint8), rows], axis=1)
-    return (_PNG_SIG
-            + _png_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, ctype,
-                                              0, 0, 0))
-            + _png_chunk(b"IDAT", zlib.compress(raw.tobytes(), 6))
-            + _png_chunk(b"IEND", b""))
+        return _luma(arr)
+    return reversed_rgb(arr)  # RGB(A) -> BGR
 
 
 def imwrite(path, image):
     """Write a numpy array to an image file (expects BGR for color).
 
     The format follows the extension: ``.png``, ``.jpg``/``.jpeg``
-    (baseline, quality 75, 4:2:0 as Pillow writes it), or ``.pgm``/
-    ``.ppm``/``.pnm`` (binary P5 for gray, P6 for colour). Non-uint8
-    values are clipped to [0, 255] and truncated to uint8, as the JAX
-    package does.
+    (baseline, quality 75, 4:2:0 as Pillow writes it), ``.bmp`` (8-bit
+    gray with the gray palette, or 24-bit), ``.tif``/``.tiff``
+    (uncompressed), or ``.pgm``/``.ppm``/``.pnm`` (binary P5 for gray, P6
+    for colour); BMP and TIFF byte for byte as Pillow's ``Image.save``.
+    Non-uint8 values are clipped to [0, 255] and truncated to uint8, as
+    the JAX package does.
     """
     arr = np.asarray(image)
     if arr.dtype != np.uint8:
@@ -194,20 +194,23 @@ def imwrite(path, image):
     if not (arr.ndim == 2 or (arr.ndim == 3 and arr.shape[2] == 3)):
         raise ValueError(f"cannot write an image of shape {arr.shape}: "
                          "gray (H, W) or BGR (H, W, 3) only")
-    if arr.ndim == 3:
-        arr = arr[:, :, ::-1]  # BGR -> RGB
-    arr = np.ascontiguousarray(arr)
+    arr = reversed_rgb(arr) if arr.ndim == 3 else np.ascontiguousarray(arr)
     ext = os.path.splitext(str(path))[1].lower()
     if ext == ".png":
-        data = _encode_png(arr)
+        data = png.encode(arr)
     elif ext in (".jpg", ".jpeg"):
         data = native.jpeg_encode(arr, quality=75, bgr=False)
+    elif ext == ".bmp":
+        data = bmp.encode(arr)
+    elif ext in (".tif", ".tiff"):
+        data = tiff.encode(arr)
     elif ext in (".pgm", ".ppm", ".pnm"):
         magic = b"P5" if arr.ndim == 2 else b"P6"
         h, w = arr.shape[:2]
         data = magic + f"\n{w} {h}\n255\n".encode() + arr.tobytes()
     else:
         raise ValueError(f"{path!r}: cannot write {ext or 'no'} extension "
-                         "(.png, .jpg, .jpeg, .pgm, .ppm or .pnm only)")
+                         "(.png, .jpg, .jpeg, .bmp, .tif, .tiff, .pgm, .ppm "
+                         "or .pnm only)")
     with open(path, "wb") as f:
         f.write(data)

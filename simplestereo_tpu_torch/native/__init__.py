@@ -3,12 +3,15 @@ native
 ======
 
 Host C++ of the port, built at first use: the PLY writer and parser of
-``_ply.cpp`` (the port of ``simplestereo_tpu/native/_ply.cpp``), the
-PNG row unfiltering of ``_png.cpp`` (for :mod:`..imgio`) and the baseline
-JPEG codec of ``_jpeg.cpp`` (for :mod:`..imgio` and :mod:`..videoio`,
-where the JAX package uses Pillow). ctypes releases the GIL during each
-call, so a decode in a :class:`..utils.Capture` grab thread leaves the
-other threads running.
+``_ply.cpp`` (the port of ``simplestereo_tpu/native/_ply.cpp``), and the
+byte chains of the image decoders, where the JAX package uses Pillow: the
+PNG row unfiltering of ``_png.cpp``, the JPEG codec of ``_jpeg.cpp``
+(baseline and progressive decoding, baseline encoding; for
+:mod:`..imgio` and :mod:`..videoio`), TIFF's LZW and PackBits of
+``_tiff.cpp`` and BMP's RLE8/RLE4 of ``_bmp.cpp`` (for
+:mod:`..formats`). ctypes releases the GIL during each call, so a decode
+in a :class:`..utils.Capture` grab thread leaves the other threads
+running.
 
 Each source has a plain C interface, so it needs no ``Python.h``: ``g++``
 builds it in about a second (:mod:`.._build`, ``HOST_SOURCES``) into
@@ -68,9 +71,11 @@ def read_ply(path, n_skip, n_rows, n_cols):
 
 
 def png_unfilter(data, height, stride, bpp):
-    """(height, stride) uint8 rows of a PNG image from its inflated IDAT
-    bytes (each row a filter-type byte and ``stride`` filtered bytes),
-    ``bpp`` bytes a pixel."""
+    """(height, stride) uint8 rows of a PNG image (or of one Adam7 pass)
+    from its inflated IDAT bytes (each row a filter-type byte and
+    ``stride`` filtered bytes). ``bpp`` is the filters' unit, the bytes of
+    one pixel rounded up: 1 to 8 (RGBA at 16 bits), and 1 for depths
+    below 8 bits."""
     lib = _build.load_library("png")
     raw = np.frombuffer(data, np.uint8)
     if raw.size != height * (stride + 1):
@@ -82,6 +87,36 @@ def png_unfilter(data, height, stride, bpp):
     if bad:
         raise ValueError(f"PNG row {bad - 1} has unknown filter type "
                          f"{raw[(bad - 1) * (stride + 1)]}")
+    return out
+
+
+def tiff_decompress(data, size, packbits=False):
+    """The first ``size`` bytes that one TIFF strip or tile of LZW (or,
+    with ``packbits``, PackBits) bytes ``data`` decodes to; fewer when the
+    data ends first."""
+    lib = _build.load_library("tiff")
+    out = np.empty(size, np.uint8)
+    fn = lib.tiff_packbits if packbits else lib.tiff_lzw
+    n = fn(data, len(data), out.ctypes.data, size)
+    if n < 0:
+        raise ValueError(f"TIFF: {lib.tiff_error().decode()}")
+    return out[:n]
+
+
+def bmp_rle(data, start, rle4, width, height):
+    """(height, width) uint8 palette indices of a BMP's RLE8 (or RLE4)
+    stream ``data`` in stored row order, as Pillow decodes it; ``start``
+    is the stream's offset in the file. A stream that ends before the
+    image is filled raises, as in Pillow."""
+    lib = _build.load_library("bmp")
+    out = np.empty((height, width), np.uint8)
+    n = lib.bmp_rle(data, len(data), start, int(bool(rle4)), width,
+                    out.ctypes.data, out.size)
+    if n < 0:
+        raise ValueError("BMP: truncated RLE delta record")
+    if n < out.size:  # Pillow: "not enough image data"
+        raise ValueError(f"BMP: the RLE data ends after {n} of "
+                         f"{out.size} pixels")
     return out
 
 
@@ -99,10 +134,11 @@ def _jpeg_header(data):
 
 
 def jpeg_decode(data, bgr=True):
-    """Decode baseline JPEG bytes: (H, W, 3) uint8, BGR when ``bgr`` else
-    RGB, or (H, W) uint8 for a grayscale image. Raises ``ValueError`` on
-    malformed data and on the features the codec leaves out (progressive,
-    arithmetic coding, 12-bit samples, ...), naming them."""
+    """Decode baseline or progressive JPEG bytes: (H, W, 3) uint8, BGR when
+    ``bgr`` else RGB, or (H, W) uint8 for a grayscale image. Raises
+    ``ValueError`` on malformed data and on the features the codec leaves
+    out (arithmetic coding, lossless and hierarchical frames, 12-bit
+    samples, CMYK/YCCK), naming them."""
     lib = _build.load_library("jpeg")
     h, w, c = _jpeg_header(data)
     out = np.empty((h, w, c) if c == 3 else (h, w), np.uint8)

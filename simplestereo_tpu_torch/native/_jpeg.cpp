@@ -8,15 +8,24 @@
 // triangle upsampling of jdsample.c and the fixed-point YCbCr -> RGB tables
 // of jdcolor.c.
 //
-// Decoder: SOF0 and SOF1 at 8 bits, 1 or 3 components (YCbCr or Adobe
-// RGB), sampling factors up to 2x2 (4:4:4, 4:2:2, 4:2:0, 4:4:0; larger
-// integer ratios are replicated, as libjpeg's int_upsample does),
-// interleaved or one-component scans, DRI/RSTn restart intervals, and the
-// Annex K standard Huffman tables where a frame has no DHT segment (Motion
-// JPEG frames of webcams and IP cameras usually carry none; libjpeg fills
-// them in the same way). Progressive (SOF2), lossless, hierarchical and
-// arithmetic-coded frames, 12-bit samples and 4-component (CMYK) images are
-// refused with an error naming the feature.
+// Decoder: SOF0, SOF1 and SOF2 (progressive, Huffman) at 8 bits, 1 or 3
+// components (YCbCr or Adobe RGB), sampling factors up to 2x2 (4:4:4,
+// 4:2:2, 4:2:0, 4:4:0; larger integer ratios are replicated, as libjpeg's
+// int_upsample does), interleaved or one-component scans, DRI/RSTn restart
+// intervals, and the Annex K standard Huffman tables where a frame has no
+// DHT segment (Motion JPEG frames of webcams and IP cameras usually carry
+// none; libjpeg fills them in the same way). A progressive frame's scans
+// (DC first and refinement, AC first with EOB runs and AC refinement, the
+// successive approximation of T.81 G.1.2) are entropy-decoded into the
+// same coefficient arrays as a baseline frame's, as jdphuff.c does, and
+// the IDCT, upsampling and colour conversion are shared, so both kinds
+// decode to libjpeg's pixels. libjpeg smooths the blocks of a progressive
+// image whose low AC coefficients are not all sent (jdcoefct.c's
+// decompress_smooth_data); every scan script that sends all 64 (Pillow's,
+// libjpeg's jpeg_simple_progression) needs no smoothing, and this decoder
+// does none. Lossless, hierarchical and arithmetic-coded frames, 12-bit
+// samples and 4-component (CMYK/YCCK) images are refused with an error
+// naming the feature.
 //
 // Encoder: baseline, JFIF, 1 or 3 components, luma sampling factors h x v
 // (2x2 = 4:2:0 by default, as Pillow), the Annex K quantisation tables
@@ -269,6 +278,8 @@ struct Decoder {
   int adobe_transform = -1;
   int restart = 0;
   int scans = 0;
+  bool progressive = false;
+  int eobrun = 0;  // blocks left in the current AC end-of-band run
   Component comp[3];
   int quant[4][64];
   bool quant_defined[4] = {false, false, false, false};
@@ -401,6 +412,80 @@ struct Decoder {
     }
   }
 
+  // Progressive scans (jdphuff.c): each block's share of one scan, into
+  // the coefficients decoded by the scans before it.
+  void decode_dc_first(BitReader& br, Component& c, int& pred, int16_t* blk,
+                       int al) {
+    int s = decode_symbol(br, dc[c.td]);
+    if (s > 15) s = 0;
+    pred += s ? extend(br.get(s), s) : 0;
+    blk[0] = int16_t(unsigned(pred) << al);
+  }
+
+  void decode_ac_first(BitReader& br, Component& c, int16_t* blk, int ss,
+                       int se, int al) {
+    if (eobrun > 0) {
+      --eobrun;
+      return;
+    }
+    const Huffman& t = ac[c.ta];
+    for (int k = ss; k <= se; ++k) {
+      int rs = decode_symbol(br, t);
+      int r = rs >> 4, s = rs & 15;
+      if (s) {
+        k += r;
+        blk[kNatural[k]] = int16_t(unsigned(extend(br.get(s), s)) << al);
+      } else if (r == 15) {
+        k += 15;  // sixteen zeros
+      } else {
+        eobrun = (1 << r) + (r ? br.get(r) : 0) - 1;
+        break;
+      }
+    }
+  }
+
+  // One correction bit for a coefficient already nonzero: a 1 adds the
+  // scan's bit to its magnitude.
+  static void refine(BitReader& br, int16_t* co, int p1) {
+    if (br.get(1) && (*co & p1) == 0) *co = int16_t(*co + (*co >= 0 ? p1 : -p1));
+  }
+
+  void decode_ac_refine(BitReader& br, Component& c, int16_t* blk, int ss,
+                        int se, int al) {
+    const int p1 = 1 << al;
+    int k = ss;
+    if (eobrun == 0) {
+      const Huffman& t = ac[c.ta];
+      for (; k <= se; ++k) {
+        int rs = decode_symbol(br, t);
+        int r = rs >> 4, s = rs & 15;
+        if (s) {
+          s = br.get(1) ? p1 : -p1;  // a newly nonzero coefficient
+        } else if (r != 15) {
+          eobrun = (1 << r) + (r ? br.get(r) : 0);
+          break;
+        }
+        // Past the nonzero coefficients (each takes a correction bit) and
+        // r zero ones, to the zero coefficient that becomes s.
+        do {
+          int16_t* co = blk + kNatural[k];
+          if (*co != 0) {
+            refine(br, co, p1);
+          } else if (--r < 0) {
+            break;
+          }
+          ++k;
+        } while (k <= se);
+        if (s) blk[kNatural[k]] = int16_t(s);
+      }
+    }
+    if (eobrun > 0) {
+      for (; k <= se; ++k)
+        if (blk[kNatural[k]] != 0) refine(br, blk + kNatural[k], p1);
+      --eobrun;
+    }
+  }
+
   // At a restart boundary: drop the bits left, step over RSTn (or find the
   // next one, if the data lost it) and reset the DC predictions.
   void restart_marker(BitReader& br, int* preds) {
@@ -425,6 +510,7 @@ struct Decoder {
       br.pos = n;
     }
     for (int i = 0; i < 3; ++i) preds[i] = 0;
+    eobrun = 0;
   }
 
   void parse_sos(size_t p, int len) {
@@ -445,9 +531,21 @@ struct Decoder {
       sc[i] = c;
     }
     int ss = u8(p + 1 + 2 * ns), se = u8(p + 2 + 2 * ns),
-        ahal = u8(p + 3 + 2 * ns);
-    if (ss != 0 || se != 63 || ahal != 0)
-      fail("corrupt JPEG: baseline scan with spectral range %d..%d", ss, se);
+        ah = u8(p + 3 + 2 * ns) >> 4, al = u8(p + 3 + 2 * ns) & 15;
+    // kind 0: baseline; progressive 1: DC first, 2: DC refinement, 3: AC
+    // first, 4: AC refinement.
+    int kind = 0;
+    if (!progressive) {
+      if (ss != 0 || se != 63 || ah != 0 || al != 0)
+        fail("corrupt JPEG: baseline scan with spectral range %d..%d", ss, se);
+    } else {
+      if (ss == 0 ? se != 0 : (se < ss || se > 63 || ns != 1))
+        fail("corrupt JPEG: progressive scan with spectral range %d..%d", ss,
+             se);
+      if (al > 13 || (ah && ah != al + 1))
+        fail("corrupt JPEG: successive approximation %d/%d", ah, al);
+      kind = ss == 0 ? (ah ? 2 : 1) : (ah ? 4 : 3);
+    }
     default_tables();
     for (int i = 0; i < ns; ++i) {
       Component& c = *sc[i];
@@ -464,6 +562,16 @@ struct Decoder {
     BitReader br{data, n, p + len - 2};
     int preds[3] = {0, 0, 0};
     int left = restart;
+    eobrun = 0;
+    auto unit = [&](Component& c, int& pred, int16_t* blk) {
+      switch (kind) {
+        case 0: decode_block(br, c, pred, blk); break;
+        case 1: decode_dc_first(br, c, pred, blk, al); break;
+        case 2: if (br.get(1)) blk[0] = int16_t(blk[0] | (1 << al)); break;
+        case 3: decode_ac_first(br, c, blk, ss, se, al); break;
+        default: decode_ac_refine(br, c, blk, ss, se, al);
+      }
+    };
     if (ns == 1) {
       Component& c = *sc[0];
       int bx = (c.dw + 7) / 8, by = (c.dh + 7) / 8;
@@ -476,8 +584,7 @@ struct Decoder {
             }
             --left;
           }
-          decode_block(br, c, preds[0],
-                       &c.coef[(size_t(y) * c.bw + x) * 64]);
+          unit(c, preds[0], &c.coef[(size_t(y) * c.bw + x) * 64]);
         }
     } else {
       for (int my = 0; my < mcuy; ++my)
@@ -494,7 +601,7 @@ struct Decoder {
             for (int v = 0; v < c.v; ++v)
               for (int h = 0; h < c.h; ++h) {
                 size_t b = size_t(my * c.v + v) * c.bw + mx * c.h + h;
-                decode_block(br, c, preds[i], &c.coef[b * 64]);
+                unit(c, preds[i], &c.coef[b * 64]);
               }
           }
         }
@@ -514,11 +621,12 @@ struct Decoder {
 
   // Frame types this decoder refuses, named.
   static void refuse(int m) {
-    if (m == 0xC2 || m == 0xC6 || m == 0xCA || m == 0xCE)
-      fail("progressive JPEG (SOF%d) is not supported", m - 0xC0);
+    if (m == 0xCA)
+      fail("arithmetic-coded progressive JPEG (SOF%d) is not supported",
+           m - 0xC0);
     if (m == 0xC3 || m == 0xC7 || m == 0xCB || m == 0xCF)
       fail("lossless JPEG (SOF%d) is not supported", m - 0xC0);
-    if (m == 0xC5)
+    if (m == 0xC5 || m == 0xC6 || m == 0xCE)
       fail("hierarchical JPEG (SOF%d) is not supported", m - 0xC0);
     if (m == 0xC9 || m == 0xCD || m == 0xCC)
       fail("arithmetic-coded JPEG (marker 0x%X) is not supported", m);
@@ -546,7 +654,8 @@ struct Decoder {
       if (end > n) fail("truncated JPEG data");
       pos = end;
       refuse(m);
-      if (m == 0xC0 || m == 0xC1) {
+      if (m == 0xC0 || m == 0xC1 || m == 0xC2) {
+        progressive = m == 0xC2;
         parse_sof(p, len, m);
         if (header_only) return;
       } else if (header_only) {

@@ -1,5 +1,5 @@
 // _png.cpp: the PNG row filters undone, with a plain C interface loaded
-// with ctypes (see simplestereo_tpu_torch/imgio.py).
+// with ctypes (see simplestereo_tpu_torch/formats/png.py).
 //
 // The port reads PNG without Pillow: zlib (Python's standard library)
 // inflates the IDAT stream, and this function reverses the five row
@@ -11,7 +11,8 @@
 // C entry:
 //   png_unfilter(in, height, stride, bpp, out)
 //       in: height rows of 1 filter byte + stride bytes; out: height rows
-//       of stride bytes; bpp: bytes a pixel (1 to 4 here). Returns 0, or
+//       of stride bytes; bpp: bytes a pixel rounded up (1 to 8; 1 for
+//       depths below 8 bits: the filters work on bytes). Returns 0, or
 //       1 + the row index of the first row with an unknown filter type.
 
 #include <cstdlib>

@@ -7,9 +7,14 @@ the port of :mod:`simplestereo_tpu.utils` (numpy only; importing the
 original would import jax through its package).
 
 The code is the JAX package's, copied, with one change: :class:`Capture`
-decodes image-file sequences with the port's :mod:`.imgio` (PNG, baseline
-JPEG, PGM/PPM) where the JAX package uses Pillow. A file that
-:mod:`.imgio` cannot read (``.bmp``, ``.tif``) is a driver error, which
+decodes image-file sequences with the port's :mod:`.imgio` where the JAX
+package uses Pillow, and gives the same frames for every format both
+read (the ``.png .jpg .jpeg .bmp .tif .tiff`` files a directory is
+scanned for): ``np.asarray(Image.open(path))`` with the colour channels
+reversed to BGR, so the same shape and dtype (bool for bilevel files,
+uint16 for 16-bit gray, palette indices for palette files, uint8
+otherwise). A file that :mod:`.imgio` refuses (a GIF or WebP under another
+name, a CMYK JPEG, a float TIFF, ...) is a driver error, which
 :meth:`Capture.get` raises once the grab thread gives up on it, as it does
 for any failing source. The threaded grabber is host-only by design; the
 drawing helpers are pure numpy so they do not pull OpenCV in.
@@ -193,19 +198,21 @@ class Capture:
 
             def next_frame():
                 from . import imgio
+                from .formats import reversed_rgb
                 if self._idx >= len(self._files):
                     if not self.loop or not self._files:
                         return None
                     self._idx = 0
                 path = self._files[self._idx]
                 self._idx += 1
-                # The file's own channels, as np.asarray(Image.open(path))
-                # gives them: gray (H, W), gray + alpha (H, W, 2), RGB(A).
+                # The file's own samples, as np.asarray(Image.open(path))
+                # gives them.
                 img = imgio.read_samples(path)
-                if img.shape[2] == 1:
-                    img = img[:, :, 0]
                 if img.ndim == 3 and img.shape[2] >= 3:
-                    img = img[:, :, 2::-1]  # RGB -> BGR, OpenCV-compatible
+                    # RGB -> BGR, OpenCV-compatible; contiguous, so that
+                    # get()'s copy is a memcpy, not an element-by-element
+                    # copy of a reversed view (PERF.md, image formats).
+                    img = reversed_rgb(img)
                 return img
 
             self._next = next_frame

@@ -4,10 +4,14 @@
 PNGs that Pillow writes read back equal (colour as BGR, ``grayscale=True``
 as Pillow's ``convert("L")``); the port's PNGs and P5/P6 files read equal
 in Pillow; a hand-built PNG for each of the five row filters decodes to
-its pixels; 16-bit, palette, interlaced and progressive JPEG files raise
-ValueError.
+its pixels; the 16-bit, palette, interlaced PNG and progressive JPEG files
+that the port once refused read as the JAX package reads them; GIF, WebP,
+CMYK JPEG and arithmetic-coded JPEG files, and writing ``.webp``, raise
+ValueError naming the format (tests/test_torch_imgio_formats.py holds
+every format and variant).
 """
 
+import io
 import struct
 import zlib
 
@@ -15,6 +19,7 @@ import numpy as np
 import pytest
 from PIL import Image
 
+import image_files
 import simplestereo_tpu.imgio as jio
 from simplestereo_tpu_torch import imgio
 
@@ -145,8 +150,7 @@ def test_idat_split_over_chunks(tmp_path):
     np.testing.assert_array_equal(imgio.imread(str(path)), img)
 
 
-@pytest.mark.parametrize("what", ["16-bit", "palette", "interlaced", "JPEG"])
-def test_unsupported_raises(tmp_path, what):
+def _formerly_refused(tmp_path, what):
     path = tmp_path / "u.png"
     if what == "16-bit":
         Image.fromarray(np.arange(64, dtype=np.uint16).reshape(8, 8) * 900
@@ -154,14 +158,56 @@ def test_unsupported_raises(tmp_path, what):
     elif what == "palette":
         Image.fromarray(_image(6)).convert("P").save(str(path))
     elif what == "interlaced":
-        path.write_bytes(_png(4, 4, 0, b"\x00" * 20, interlace=1))
-    else:  # baseline JPEG reads (test_torch_jpeg.py); progressive raises
+        path.write_bytes(image_files.png(_image(6, (5, 7)), 8, 2,
+                                         interlace=True))
+    else:
         path = tmp_path / "u.jpg"
         Image.fromarray(_image(6)).save(str(path), progressive=True)
-    with pytest.raises(ValueError, match=what.split("-")[0]):
-        imgio.imread(str(path))
+    return str(path)
+
+
+@pytest.mark.parametrize("what", ["16-bit", "palette", "interlaced", "JPEG"])
+def test_formerly_refused_now_read(tmp_path, what):
+    """The files test_unsupported_raises once pinned as refused (16-bit,
+    palette and Adam7 PNG, progressive JPEG) read as in the JAX package."""
+    path = _formerly_refused(tmp_path, what)
+    for gray in (False, True):
+        a, b = imgio.imread(path, grayscale=gray), jio.imread(path, gray)
+        assert a.dtype == b.dtype and a.shape == b.shape
+        np.testing.assert_array_equal(a, b)
+    np.testing.assert_array_equal(imgio.read_samples(path),
+                                  np.asarray(Image.open(path)))
+
+
+def _refused(tmp_path, what):
+    """Formats the port still refuses, each as Pillow writes it (or, for
+    arithmetic coding, Pillow's JPEG with its SOF0 marker made SOF9)."""
+    img = _image(6)
+    if what == "GIF":
+        path = tmp_path / "u.gif"
+        Image.fromarray(img).save(str(path))
+    elif what == "WebP":
+        path = tmp_path / "u.webp"
+        Image.fromarray(img).save(str(path))
+    elif what == "CMYK":
+        path = tmp_path / "u.jpg"
+        Image.fromarray(img).convert("CMYK").save(str(path))
+    else:
+        buf = io.BytesIO()
+        Image.fromarray(img).save(buf, "JPEG")
+        data = bytearray(buf.getvalue())
+        data[data.index(b"\xff\xc0") + 1] = 0xC9
+        path = tmp_path / "u.jpg"
+        path.write_bytes(bytes(data))
+    return str(path)
+
+
+@pytest.mark.parametrize("what", ["GIF", "WebP", "CMYK", "arithmetic"])
+def test_unsupported_raises(tmp_path, what):
+    with pytest.raises(ValueError, match=what):
+        imgio.imread(_refused(tmp_path, what))
 
 
 def test_unsupported_extension(tmp_path):
-    with pytest.raises(ValueError, match="extension"):
-        imgio.imwrite(str(tmp_path / "x.bmp"), np.zeros((2, 2), np.uint8))
+    with pytest.raises(ValueError, match="webp extension"):
+        imgio.imwrite(str(tmp_path / "x.webp"), np.zeros((2, 2), np.uint8))

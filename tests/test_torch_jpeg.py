@@ -9,7 +9,8 @@ and colour tables, so it is exact in practice); 4:4:0 on the port's own
 bytes, decoded by both; a Motion-JPEG frame without DHT segments equal to
 the same frame with its tables; the port's encoder decoded by Pillow
 within the JAX MJPG test's bar (mean |d| < 4 on smooth frames); errors
-for progressive and malformed input.
+for arithmetic-coded progressive (SOF10), CMYK and malformed input
+(progressive Huffman files decode: tests/test_torch_imgio_formats.py).
 """
 
 import io
@@ -150,8 +151,10 @@ def test_encoder_matches_pillow_encoder(shape):
                                   "cmyk"])
 def test_errors(tmp_path, kind):
     img = _photo(2, 24, 32)
-    if kind == "progressive":
-        data, match = _pillow_bytes(img, progressive=True), "progressive"
+    if kind == "progressive":  # arithmetic-coded progressive: SOF10
+        data = bytearray(_pillow_bytes(img, progressive=True))
+        data[data.index(b"\xff\xc2") + 1] = 0xCA
+        data, match = bytes(data), "arithmetic-coded progressive"
     elif kind == "truncated":
         data = _pillow_bytes(img)
         data, match = data[:len(data) // 2], "truncated"

@@ -4,10 +4,10 @@ helpers) and ``v4l2`` against the JAX package's copies.
 Capture's driver, callable, file-sequence, video, flipY and error cases
 are the JAX tests' (tests/test_unwrapping_utils.py, tests/test_videoio.py)
 run on the port, and where both packages give a frame the frames are
-equal: file sequences decode through the port's imgio (PNG, JPEG) as the
-JAX package's decode through Pillow, and a file imgio cannot read
-(``.bmp``) surfaces from ``get()`` as the driver error. The numpy helpers
-and ``yuyv_to_bgr`` are exactly equal.
+equal: file sequences decode through the port's imgio (PNG, JPEG, BMP,
+TIFF) as the JAX package's decode through Pillow, and a file imgio
+refuses (a GIF) surfaces from ``get()`` as the driver error. The numpy
+helpers and ``yuyv_to_bgr`` are exactly equal.
 """
 
 import io
@@ -49,7 +49,9 @@ def _files(tmp_path, rng, mode, ext, n=3):
 
 @pytest.mark.parametrize("mode,ext", [("RGB", ".png"), ("L", ".png"),
                                       ("RGBA", ".png"), ("LA", ".png"),
-                                      ("RGB", ".jpg"), ("L", ".jpg")])
+                                      ("RGB", ".jpg"), ("L", ".jpg"),
+                                      ("RGB", ".bmp"), ("P", ".bmp"),
+                                      ("RGB", ".tif"), ("I;16", ".tif")])
 def test_file_sequence_frames_equal_jax(tmp_path, rng, mode, ext):
     paths = _files(tmp_path, rng, mode, ext, n=1)
     ours = _grab(tss, paths)
@@ -69,9 +71,9 @@ def test_directory_and_single_file(tmp_path, rng):
 
 
 def test_unreadable_file_is_a_driver_error(tmp_path, rng):
-    """.bmp: Pillow reads it, the port's imgio does not, and the grab
+    """A GIF: Pillow reads it, the port's imgio refuses it, and the grab
     thread's error surfaces from get() instead of giving no frame."""
-    p = str(tmp_path / "f.bmp")
+    p = str(tmp_path / "f.gif")
     Image.fromarray(rng.integers(0, 255, (8, 10, 3), np.uint8)).save(p)
     cap = utils.Capture([p])
     cap._max_consecutive_errors = 3
