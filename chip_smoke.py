@@ -104,7 +104,15 @@ all started together) and drives the port's main paths:
   pairs written by ``imgio`` as BMP and as TIFF, each folder through
   ``utils.Capture`` into ``computeBatch`` on the ASW kernel, the maps
   equal to the in-memory frames'; ms to decode a 1280x720 frame in each
-  format and the folders' pairs/s.
+  format and the folders' pairs/s;
+- the example scripts, the port's entry points that mirror the JAX
+  package's: the 19 that no other phase runs, on the card, on a stand-in
+  resource tree at the reference's sizes (tests/torch_example_res.py:
+  1280x720 chessboards and rig, lawn pair and camera-projector rig,
+  384x288 Tsukuba), each held to the tree's truth, with K1, K2, K3 and S2
+  held against their twins on the scripts' own inputs, the launch counts
+  of each script read, the cheap ones against the same script on the
+  CPU, and each script and matcher call timed.
 
 Every kernel's JSON record carries ``bound_ms``, the least time the card
 could take for the kernel's work at the timed shape: the larger of its
@@ -120,7 +128,10 @@ Needs a CUDA card, nvcc, g++ and the repository checkout; imports no
 JAX, Pillow or matplotlib. Phases 24 and 29 write their videos, images
 and traces under the checkout's ``build/chip_smoke_stream/`` and delete
 them at the end; phase 29 imports ``tests/image_files.py`` (numpy and
-zlib only) to build the 1280x720 files the port cannot write.
+zlib only) to build the 1280x720 files the port cannot write; phases
+16, 23 and 30 draw their scenes with ``tests/torch_example_res.py``
+(numpy and the port), and phase 30 writes its tree in a temporary
+folder.
 """
 
 import contextlib
@@ -294,12 +305,19 @@ def pair(h, w, seed=SEED):
     return left, np.roll(left, -SHIFT, axis=1)
 
 
-def compare_pass(k, p, min_disp, where):
+def compare_pass(k, p, min_disp, where, flat_ok=False):
     """Kernel outputs k vs plain outputs p, both (cost, dispL, dispR, csub).
-    Costs: the same inf pattern, RTOL on finite entries. Maps: at most
-    MISMATCH differ, and each pixel that differs is a near-tie: the plain
-    volume's cost at the kernel's pick is within 2*RTOL of its minimum.
-    Returns (max abs err, max rel err, worst map mismatch)."""
+    Costs: the same inf pattern, RTOL on finite entries. Maps: each is the
+    first argmin of the kernel's own cost volume, exactly; each pixel that
+    differs from the twin's map is a near-tie (the plain volume's cost at
+    the kernel's pick is within 2*RTOL of its minimum), and at most
+    MISMATCH of the pixels differ. With ``flat_ok``, a flip at a flat
+    pixel, whose every in-range candidate lies within 2*RTOL of the
+    minimum (a window that meets the SAD cap at every disparity, on a
+    black border, ties them all), is held by the exact first-argmin rule
+    and the costs' RTOL alone, and counted apart from the MISMATCH share.
+    Returns (max abs err, max rel err, worst map mismatch, flips at flat
+    pixels left out of it)."""
     from simplestereo_tpu_torch.passive.asw_cuda import _right_volume
     kc, pc = k[0], p[0]
     check(torch.equal(torch.isinf(kc), torch.isinf(pc)),
@@ -309,15 +327,17 @@ def compare_pass(k, p, min_disp, where):
     abs_err = diff.max().item()
     rel_err = (diff / pc[fin].abs().clamp(min=1e-30)).max().item()
     check(rel_err <= RTOL, f"{where}: cost rel err {rel_err:.3g} > {RTOL}")
-    mism = 0.0
+    mism, flat_flips = 0.0, 0
     for km, pm, name in ((k[1], p[1], "dispL"), (k[2], p[2], "dispR")):
         check((km is None) == (pm is None), f"{where}: {name} presence")
         if km is None:
             continue
+        own = kc if name == "dispL" else _right_volume(kc, min_disp)
+        n_own = int((km != own.argmin(1) + min_disp).sum())
+        check(n_own == 0, f"{where}: {name} is not the first argmin of the "
+              f"kernel's own costs at {n_own} pixels")
+        del own
         bad = km != pm
-        m = bad.double().mean().item()
-        check(m <= MISMATCH, f"{where}: {name} mismatch {m:.2%}")
-        mism = max(mism, m)
         if bad.any():
             vol = pc if name == "dispL" else _right_volume(pc, min_disp)
             at = lambda d: torch.gather(vol, 1, (d - min_disp).long()[:, None])
@@ -325,6 +345,15 @@ def compare_pass(k, p, min_disp, where):
             gap = ((ck - cp).abs() / cp.abs().clamp(min=1e-30)).max().item()
             check(gap <= 2 * RTOL, f"{where}: {name} flip with cost gap "
                   f"{gap:.3g}, not a near-tie")
+            if flat_ok:
+                lo = vol.amin(1)
+                hi = torch.where(torch.isfinite(vol), vol, -torch.inf).amax(1)
+                flat = (hi - lo) <= 2 * RTOL * lo.abs()
+                flat_flips += int((bad & flat).sum())
+                bad = bad & ~flat
+        m = bad.double().mean().item()
+        check(m <= MISMATCH, f"{where}: {name} mismatch {m:.2%}")
+        mism = max(mism, m)
     if k[3] is not None:
         agree = (k[1] == p[1])[:, None].expand_as(k[3])
         ks, ps = k[3][agree], p[3][agree]
@@ -333,7 +362,7 @@ def compare_pass(k, p, min_disp, where):
         f = torch.isfinite(ps)
         rel = ((ks[f] - ps[f]).abs() / ps[f].abs().clamp(min=1e-30)).max()
         check(rel.item() <= RTOL, f"{where}: csub rel err {rel.item():.3g}")
-    return abs_err, rel_err, mism
+    return abs_err, rel_err, mism, flat_flips
 
 
 def kernel_name(symbol):
@@ -864,7 +893,7 @@ def gsw_phases(dev, card):
         _, _, main_err[(h, w)] = versus(
             sd_planes(left[None], right[None], win), dict(H=h, W=w, **pkw),
             f"GSW main path {w}x{h}")
-        a, r_, mm = main_err[(h, w)]
+        a, r_, mm, _ = main_err[(h, w)]
         print(f"phase 12 GSW main path {w}x{h} win {win} D={D} consistent: "
               f"{frac:.2%} of interior = {SHIFT}, calls {n}, batch of 8 "
               f"bit-equal to per-frame, kernel vs twin max abs err {a:.3g} "
@@ -936,7 +965,7 @@ def gsw_phases(dev, card):
         2 * th * tw * win * win * (10 + 2 * D),
         tsu[0].numel() * 4 + 2 * th * tw * 4)
     del tsu
-    abs_err, rel_err, mism = main_err[(th, tw)]
+    abs_err, rel_err, mism, _ = main_err[(th, tw)]
     print(f"phase 14a GSW {tw}x{th} win {win} D={D} consistent (2 frames): "
           f"kernel {k_ms:.3f} ms ({rate(th, tw, 1, k_ms):.1f} "
           f"Mpix*disp/s per frame pair), twin {p_ms:.1f} ms, bound "
@@ -991,122 +1020,34 @@ def gsw_phases(dev, card):
 # Phase 16: the README pipeline on a seeded random 1280x720 rig, drawn as
 # tests/test_rectification.py draws them, looking at a plane covered in
 # noise whose rectified disparity is PLANE_DISP (inside 4..14) everywhere.
-RIG_SEED = 40
+# The renderers (random_rig_args, disparity_plane, render_plane,
+# true_disparity) are tests/torch_example_res.py's, which draws phase 30's
+# resource tree with them.
 PLANE_DISP = 9.0
 PIPE_SHAPE = (720, 1280)
-# Share of the valid interior whose disparity must lie within 1 px of the
-# plane's true rectified disparity; bound on the card's cloud against a
-# float64 numpy reprojection of the same map, relative to each point's
-# distance from the camera (a coordinate near 0 has no relative error to
-# speak of: x - cx cancels in float32).
-PLANE_BAR = 0.90
+# The share of the valid interior whose disparity must lie within 1 px of
+# the plane's true rectified disparity is torch_example_res.PLANE_BAR.
+# Bound on the card's cloud against a float64 numpy reprojection of the
+# same map, relative to each point's distance from the camera (a
+# coordinate near 0 has no relative error to speak of: x - cx cancels in
+# float32).
 CLOUD_RTOL = 1e-5
 
 
-def random_rig_args(seed=RIG_SEED):
-    """A random 1280x720 rig: modest rotation, mostly-x baseline, distinct
-    intrinsics, small distortion on both cameras."""
-    from simplestereo_tpu_torch.geometry import npgeom
-    rng = np.random.default_rng(seed)
-    f1 = rng.uniform(700, 1500)
-    f2 = f1 * rng.uniform(0.9, 1.1)
-    K1 = np.array([[f1, 0, rng.uniform(600, 680)],
-                   [0, f1 * rng.uniform(0.98, 1.02), rng.uniform(330, 390)],
-                   [0, 0, 1.0]])
-    K2 = np.array([[f2, 0, rng.uniform(600, 680)],
-                   [0, f2 * rng.uniform(0.98, 1.02), rng.uniform(330, 390)],
-                   [0, 0, 1.0]])
-    R = npgeom.rodrigues_to_matrix(rng.normal(0, 0.06, 3))
-    T = np.array([[-rng.uniform(60, 220)],
-                  [rng.normal(0, 5)], [rng.normal(0, 8)]])
-    d1 = np.r_[rng.normal(0, 0.05, 2), rng.normal(0, 0.002, 2), 0.0]
-    d2 = np.r_[rng.normal(0, 0.05, 2), rng.normal(0, 0.002, 2), 0.0]
-    return (1280, 720), (1280, 720), K1, K2, d1, d2, R, T
+def tests_on_path():
+    """Put the checkout's tests/ on sys.path, for its fixture builders
+    (torch_example_res.py, image_files.py)."""
+    import pathlib
+    tests = pathlib.Path(__file__).resolve().parent / "tests"
+    if str(tests) not in sys.path:
+        sys.path.insert(0, str(tests))
 
 
-def disparity_plane(rect, target):
-    """(n, c, p0): the plane n . X = c (camera-1 frame, |n| = 1) whose
-    rectified disparity is ``target`` at every pixel, and a point p0 on it.
-    The rectified views share their rows, so the points of one disparity
-    form a plane (with the two views' different x-shears it is not
-    fronto-parallel); three of them, triangulated through the rectified
-    projection matrices, fix it."""
-    P1, P2 = rect.getRectifiedProjectionMatrices()
-    w, h = rect.res1
-    pts = []
-    for u, v in ((0.25 * w, 0.25 * h), (0.75 * w, 0.25 * h),
-                 (0.5 * w, 0.75 * h)):
-        A = np.stack([u * P1[2] - P1[0], v * P1[2] - P1[1],
-                      (u - target) * P2[2] - P2[0], v * P2[2] - P2[1]])
-        X = np.linalg.svd(A)[2][-1]
-        pts.append(X[:3] / X[3])
-    n = np.cross(pts[1] - pts[0], pts[2] - pts[0])
-    n /= np.linalg.norm(n)
-    return n, float(n @ pts[0]), pts[0]
-
-
-def render_plane(rig, plane, shape, seed=SEED):
-    """The two distorted views of ``plane`` (from :func:`disparity_plane`)
-    covered in noise, about 2 px per texel, uint8 BGR: each pixel's ray is
-    undistorted, meets the plane, and the texture is sampled bilinearly
-    there in the plane's own coordinates."""
-    from simplestereo_tpu_torch.geometry import npgeom
-    n, c, p0 = plane
-    h, w = shape
-    n_tex = w // 2 + 200
-    tex = np.random.default_rng(seed).integers(
-        0, 256, (n_tex, n_tex, 3)).astype(np.float64)
-    texel = 2.0 * p0[2] / rig.intrinsic1[0, 0]
-    e1 = np.cross([0.0, 1.0, 0.0], n)
-    e1 /= np.linalg.norm(e1)
-    e2 = np.cross(n, e1)
-    u, v = np.meshgrid(np.arange(w, dtype=np.float64),
-                       np.arange(h, dtype=np.float64))
-    pix = np.stack([u, v], -1).reshape(-1, 2)
-    R, T = rig.R, rig.T.ravel()
-    views = []
-    for K, d, Rw, C in ((rig.intrinsic1, rig.distCoeffs1, np.eye(3),
-                         np.zeros(3)),
-                        (rig.intrinsic2, rig.distCoeffs2, R, -R.T @ T)):
-        ray = np.concatenate([npgeom.undistort_points(pix, K, d),
-                              np.ones((len(pix), 1))], 1) @ Rw
-        P = C + ray * ((c - n @ C) / (ray @ n))[:, None]
-        tx = (P - p0) @ e1 / texel + n_tex / 2
-        ty = (P - p0) @ e2 / texel + n_tex / 2
-        x0 = np.clip(np.floor(tx).astype(int), 0, n_tex - 2)
-        y0 = np.clip(np.floor(ty).astype(int), 0, n_tex - 2)
-        fx, fy = (tx - x0)[:, None], (ty - y0)[:, None]
-        val = ((tex[y0, x0] * (1 - fx) + tex[y0, x0 + 1] * fx) * (1 - fy)
-               + (tex[y0 + 1, x0] * (1 - fx) + tex[y0 + 1, x0 + 1] * fx) * fy)
-        views.append(np.clip(np.round(val), 0, 255).astype(np.uint8)
-                     .reshape(h, w, 3))
-    return views
-
-
-def true_disparity(rect, plane, shape):
-    """The plane's rectified disparity at every rectified left pixel: the
-    pixel's ray through P1 meets the plane, P2 projects the point."""
-    n, c, _ = plane
-    h, w = shape
-    P1, P2 = rect.getRectifiedProjectionMatrices()
-    u, v = np.meshgrid(np.arange(w, dtype=np.float64),
-                       np.arange(h, dtype=np.float64))
-    ray = np.stack([u, v, np.ones_like(u)], -1) @ np.linalg.inv(P1[:, :3]).T
-    X = ray * (c / (ray @ n))[..., None]
-    x2 = np.concatenate([X, np.ones_like(u)[..., None]], -1) @ P2.T
-    return u - x2[..., 0] / x2[..., 2]
-
-
-def uint8_close(a, b, where):
-    """Equal but for pixels at most 1 apart, at most 0.1% of them.
-    Returns the share of pixels that differ."""
-    d = np.abs(a.astype(np.int64) - b.astype(np.int64))
-    share = float((d > 0).mean())
-    check(a.shape == b.shape and a.dtype == b.dtype == np.uint8,
-          f"{where}: shape or type")
-    check(d.max() <= 1 and share <= 1e-3, f"{where}: max diff {d.max()}, "
-          f"{share:.4%} of pixels differ")
-    return share
+def example_res():
+    """tests/torch_example_res.py."""
+    tests_on_path()
+    import torch_example_res
+    return torch_example_res
 
 
 def rotate_phase(dev, card):
@@ -1242,13 +1183,14 @@ def pipeline_phase(dev, card):
     from simplestereo_tpu_torch.passive import StereoASW, asw_cuda
     from simplestereo_tpu_torch.probes import rotate
 
+    res = example_res()
     h, w = PIPE_SHAPE
-    args = random_rig_args()
+    args = res.random_rig_args()
     rect = tss.rectification.directRectify(tss.StereoRig(*args, device=dev))
     check(rect.device == dev and rect.mapx1.device == dev,
           "pipeline: maps not on the card")
-    plane = disparity_plane(rect, PLANE_DISP)
-    left, right = render_plane(rect, plane, PIPE_SHAPE)
+    plane = res.disparity_plane(rect, PLANE_DISP)
+    left, right = res.render_plane(rect, plane, PIPE_SHAPE)
     lefts = [np.roll(left, i, axis=0) for i in range(3)]
     rights = [np.roll(right, i, axis=0) for i in range(3)]
     m = StereoASW(device="cuda", **MAIN)
@@ -1283,32 +1225,24 @@ def pipeline_phase(dev, card):
     # The rectified pair against the CPU path's.
     cpu = tss.rectification.directRectify(tss.StereoRig(*args, device="cpu"))
     cl, cr = cpu.rectifyImages(left, right)
-    shares = [uint8_close(l, cl, "rectified left"),
-              uint8_close(r, cr, "rectified right")]
+    shares = [res.uint8_close(l, cl, where="rectified left"),
+              res.uint8_close(r, cr, where="rectified right")]
     map_err = max((getattr(rect, k).cpu() - getattr(cpu, k)).abs().max().item()
                   for k in ("mapx1", "mapy1", "mapx2", "mapy2"))
 
     # The disparity against the plane's, where both views see the plane
     # and the window and every candidate stay inside the image.
-    truth = true_disparity(rect, plane, PIPE_SHAPE)
-
-    def inside(mx, my):
-        mx, my = mx.cpu().numpy(), my.cpu().numpy()
-        return (mx >= 0) & (mx <= w - 1) & (my >= 0) & (my <= h - 1)
-
-    from scipy.ndimage import binary_erosion
-    pad = MAIN["winSize"] // 2
-    valid = inside(rect.mapx1, rect.mapy1) & inside(rect.mapx2, rect.mapy2)
-    valid = binary_erosion(valid, np.ones((2 * pad + 1, 2 * pad + 1)))
-    valid[:, :MAIN["maxDisparity"] + pad] = False
+    truth = res.true_disparity(rect, plane, PIPE_SHAPE)
+    valid = res.plane_interior(rect, MAIN["winSize"] // 2,
+                               MAIN["maxDisparity"])
     check(valid.mean() > 0.5, f"pipeline: valid interior {valid.mean():.2%}")
     lo, hi = truth[valid].min(), truth[valid].max()
     check(MAIN["minDisparity"] + 0.5 <= lo and hi <= MAIN["maxDisparity"]
           - 0.5, f"pipeline: plane disparity {lo:.2f}..{hi:.2f} leaves the "
           "search range")
     frac = float((np.abs(d[valid] - truth[valid]) <= 1.0).mean())
-    check(frac >= PLANE_BAR, f"pipeline: only {frac:.2%} of the interior "
-          f"within 1 px of the plane's disparity")
+    check(frac >= res.PLANE_BAR, f"pipeline: only {frac:.2%} of the "
+          f"interior within 1 px of the plane's disparity")
 
     # The cloud against a float64 reprojection through Q.
     check(pts.shape == (h, w, 3) and pts.dtype == np.float32,
@@ -1345,8 +1279,8 @@ def pipeline_phase(dev, card):
         torch.cuda.synchronize()
         build.append((time.perf_counter() - t0) * 1e3)
     med = {k: statistics.median(v) for k, v in times.items()}
-    print(f"phase 16 README pipeline {w}x{h}: rig seed {RIG_SEED}, plane at "
-          f"disparity {lo:.2f}..{hi:.2f}; rectified pair vs the CPU path: "
+    print(f"phase 16 README pipeline {w}x{h}: rig seed {res.RIG_SEED}, plane "
+          f"at disparity {lo:.2f}..{hi:.2f}; rectified pair vs the CPU path: "
           f"{shares[0]:.4%} / {shares[1]:.4%} of pixels 1 apart (maps within "
           f"{map_err:.3g} px); {frac:.2%} of the valid interior "
           f"({valid.mean():.1%} of pixels) within 1 px of the plane; cloud "
@@ -2100,7 +2034,7 @@ def postfilter_phase(dev, card, s2_max_err):
               f"{share['asw']:.2%} of the interior within 0.5 px of "
               f"{SHIFT}, dense; launches (S2, K2) {n_sgm}, (S2, K1) {n_asw}; "
               f"K2's S on the path torch.equal to the twin, K1's pass vs "
-              f"the twin on {k1_err[3]} max abs err {k1_err[0]:.3g} rel "
+              f"the twin on {k1_err[4]} max abs err {k1_err[0]:.3g} rel "
               f"{k1_err[1]:.3g} map mismatch {k1_err[2]:.4%}; "
               f"median 3 and 5 equal to the CPU path | host clock, median "
               f"of {n} distinct frames: sgm leg matcher {st['sgm'][0]:.2f} "
@@ -2120,14 +2054,14 @@ def postfilter_phase(dev, card, s2_max_err):
 K1_BAND = 24
 
 
-def k1_on_path(planes, kw, out, where):
+def k1_on_path(planes, kw, out, where, flat_ok=False):
     """K1's pass on a preset's own planes (``out``, what the path's launch
     returned) against the twin under compare_pass's gates: the whole map
     up to 384x288; at larger sizes three bands of K1_BAND rows (top,
     middle, bottom), the twin run on each band and its window's halo (a
     pixel's cost reads only its window, so the band's rows are the whole
-    map's). Returns (max abs err, max rel err, worst map mismatch, what
-    was compared)."""
+    map's; ``flat_ok`` as compare_pass's). Returns (max abs err, max rel
+    err, worst map mismatch, flips at flat pixels, what was compared)."""
     from simplestereo_tpu_torch.passive import asw_cuda
     H, W = kw["H"], kw["W"]
     pad = kw["win_size"] // 2
@@ -2143,14 +2077,16 @@ def k1_on_path(planes, kw, out, where):
         return tuple(None if t is None else t.narrow(a, r0, r1 - r0)
                      for t, a in zip(ts, axes))
 
-    worst = [0.0, 0.0, 0.0]
+    worst = [0.0, 0.0, 0.0, 0]
     for r0, r1 in bands:
         a, b = max(0, r0 - pad), min(H, r1 + pad)
         p = asw_cuda._asw_pass_plain(
             planes[:, :, a:b + 2 * pad].contiguous(), **dict(kw, H=b - a))
         errs = compare_pass(rows(out, r0, r1), rows(p, r0 - a, r1 - a),
-                            kw["min_disp"], f"{where} K1 rows {r0}..{r1}")
-        worst = [max(x, y) for x, y in zip(worst, errs)]
+                            kw["min_disp"], f"{where} K1 rows {r0}..{r1}",
+                            flat_ok)
+        worst = [max(x, y) for x, y in zip(worst[:3], errs)] + [
+            worst[3] + errs[3]]
     return (*worst, what)
 
 
@@ -2184,80 +2120,8 @@ def s2_main_path(conf, w, u, lam_t, along_y, main, launches, s2_max_err):
 # corners, squares of 40 units) rendered on the card, 3x3 supersampled
 # and box-filtered as tests/test_procam.py renders them, through phase
 # 16's seeded rig (distortion on both cameras); board poses tilted up to
-# ~0.35 rad, 700-1300 units away, the whole board inside both views.
-CAL_CB = (7, 6)
-CAL_SQ = 40.0
-CAL_VIEWS = 10
-CAL_SCALE = 3
-CAL_SEED = 23
-
-
-def calib_rays(K, dist, res, dev):
-    """(N, 3) float64 rays (z = 1), on ``dev``, of every supersampled pixel
-    of a distorted camera: subpixel i at pixel (i + 0.5) / scale - 0.5."""
-    from simplestereo_tpu_torch.geometry import undistort_points
-    w, h = res
-    s = CAL_SCALE
-    xs = (torch.arange(w * s, dtype=torch.float64, device=dev) + 0.5) / s - 0.5
-    ys = (torch.arange(h * s, dtype=torch.float64, device=dev) + 0.5) / s - 0.5
-    v, u = torch.meshgrid(ys, xs, indexing="ij")
-    xy = undistort_points(torch.stack([u, v], -1).reshape(-1, 2), K, dist)
-    return torch.cat([xy, torch.ones_like(xy[:, :1])], 1)
-
-
-def render_board(rays, Rb, tb, res):
-    """The board (pose Rb, tb in the camera's frame) seen along ``rays``:
-    each ray meets its plane, the board's (x, y) there picks a dark or a
-    light square (20 or 235; light outside the board), and each pixel is
-    the mean of its subpixels, truncated to uint8."""
-    Rb = torch.as_tensor(Rb, device=rays.device)
-    tb = torch.as_tensor(tb, device=rays.device)
-    n = Rb[:, 2]
-    s = (n * tb).sum() / (rays * n).sum(1)
-    X = s[:, None] * rays - tb
-    bx = (X * Rb[:, 0]).sum(1)
-    by = (X * Rb[:, 1]).sum(1)
-    cols, rows = CAL_CB
-    inside = ((bx > -CAL_SQ) & (bx < cols * CAL_SQ) & (by > -CAL_SQ)
-              & (by < rows * CAL_SQ) & (s > 0))
-    dark = inside & ((torch.floor(bx / CAL_SQ) + torch.floor(by / CAL_SQ))
-                     % 2 == 0)
-    img = torch.where(dark, 20.0, 235.0).to(torch.float64)
-    w, h = res
-    img = img.reshape(h, CAL_SCALE, w, CAL_SCALE).mean((1, 3))
-    return img.to(torch.uint8).cpu().numpy()
-
-
-def calib_poses(rig_args):
-    """CAL_VIEWS board poses (R, t) in camera 1's frame whose whole board
-    (with its outer squares) projects inside both distorted views with a
-    margin of 30 px."""
-    from simplestereo_tpu_torch.calibration import ba
-    res1, res2, K1, K2, d1, d2, R, T = rig_args
-    T = T.ravel()
-    cols, rows = CAL_CB
-    c = np.array([[-CAL_SQ, -CAL_SQ, 0], [cols * CAL_SQ, -CAL_SQ, 0],
-                  [-CAL_SQ, rows * CAL_SQ, 0],
-                  [cols * CAL_SQ, rows * CAL_SQ, 0]])
-
-    def inside(K, d, Rc, tc, res):
-        uv = ba.project_points(c, ba._rodrigues_inv(Rc), tc, K[0, 0],
-                               K[1, 1], K[0, 2], K[1, 2], d)
-        return (uv.min() > 30 and uv[:, 0].max() < res[0] - 30
-                and uv[:, 1].max() < res[1] - 30)
-
-    rng = np.random.default_rng(CAL_SEED)
-    mid = -R.T @ T / 2  # halfway between the two centres
-    poses = []
-    while len(poses) < CAL_VIEWS:
-        Rb = ba._rodrigues(rng.normal(0, 0.35, 3))
-        z = rng.uniform(700, 1300)
-        tb = np.array([mid[0] - (cols - 1) * CAL_SQ / 2 + rng.normal(0, 60),
-                       -(rows - 1) * CAL_SQ / 2 + rng.normal(0, 50), z])
-        if inside(K1, d1, Rb, tb, res1) and inside(K2, d2, R @ Rb,
-                                                   R @ tb + T, res2):
-            poses.append((Rb, tb))
-    return poses
+# ~0.35 rad, 700-1300 units away, the whole board inside both views
+# (tests/torch_example_res.py's calib_rays, render_board, calib_poses).
 
 
 def gn_views():
@@ -2293,16 +2157,12 @@ def calibration_phase(dev, card):
     from simplestereo_tpu_torch import calibration as cal
     from simplestereo_tpu_torch.calibration import ba, chessboard, sharded
 
+    res = example_res()
+    CAL_CB, CAL_SQ, CAL_VIEWS = res.CAL_CB, res.CAL_SQ, res.CAL_VIEWS
     t0 = time.perf_counter()
-    args = random_rig_args()
+    args = res.random_rig_args()
     res1, res2, K1, K2, d1, d2, R, T = args
-    poses = calib_poses(args)
-    rays1 = calib_rays(K1, d1, res1, dev)
-    rays2 = calib_rays(K2, d2, res2, dev)
-    pairs = [(render_board(rays1, Rb, tb, res1),
-              render_board(rays2, R @ Rb, R @ tb + T.ravel(), res2))
-             for Rb, tb in poses]
-    del rays1, rays2
+    pairs = res.render_boards(args, CAL_SQ, dev)
     torch.cuda.empty_cache()
     render_s = time.perf_counter() - t0
 
@@ -2609,7 +2469,7 @@ def stream_phase(dev, card):
           f"{write_s:.2f} s (MJPG quality {STREAM_QUALITY}), K1 launches "
           f"{n}; K1 vs twin on frames 0 and {STREAM_B - 1} of the first "
           f"{STREAM_SHAPES[0][1]}x{STREAM_SHAPES[0][0]} batch "
-          f"({k1_err[3]}): max "
+          f"({k1_err[4]}): max "
           f"abs err {k1_err[0]:.3g}, rel {k1_err[1]:.3g}, map mismatch "
           f"{k1_err[2]:.4%} | " + " | ".join(parts)
           + f" | device memory in use {mem0['bytes_in_use'] / 2**20:.0f} "
@@ -3042,10 +2902,9 @@ def _fixtures():
     """tests/ on sys.path (image_files.py builds the 720p files), the
     fixtures' folder and its fixtures.json."""
     import pathlib
-    tests = pathlib.Path(__file__).resolve().parent / "tests"
-    if str(tests) not in sys.path:
-        sys.path.insert(0, str(tests))
-    folder = tests / "golden" / "torch_imgio"
+    tests_on_path()
+    folder = (pathlib.Path(__file__).resolve().parent / "tests" / "golden"
+              / "torch_imgio")
     return folder, json.loads((folder / "fixtures.json").read_text())
 
 
@@ -3239,6 +3098,318 @@ def formats_phase(dev, card):
     return report, times
 
 
+# Phase 30: the port's example scripts, the entry points that mirror the
+# JAX package's, on tests/torch_example_res.py's stand-in resource tree at
+# the reference's sizes (1280x720 rigs, lawn pair and camera-projector
+# rig; 384x288 Tsukuba), each run with runpy at its default device, the
+# card: every script but 202 (phase 25). The kernels' counts are set to 0
+# just before a script and read just after; spies keep what each kernel's
+# wrapper was given and returned, to be held against the twins after.
+EXAMPLES_SIZE = "full"
+# The kernels each script's path launches; every other count must stay 0.
+EXAMPLE_KERNELS = {"008": {"K2"}, "009": {"K1"}, "010": {"K1", "K2", "K3"},
+                   "011": {"K2", "S2"}, "201": {"K1", "K2", "K3"},
+                   "204": {"K3"}}
+
+
+def k3_on_path(a, out, where, flat_ok=False):
+    """K3's pass on a path's own planes (``a``: its arguments, ``out``:
+    what the launch returned) against the twin: the kernel again with
+    its costs (a compare launch), its map equal to the path's, then
+    compare_pass's gates on costs and map (``flat_ok`` as compare_pass's).
+    Returns compare_pass's errors."""
+    from simplestereo_tpu_torch.passive import gsw_cuda
+    kw = {k: v for k, v in a.items()
+          if k not in ("planes", "plan", "return_cost")}
+    kd, kc = gsw_cuda._gsw_pass(a["planes"], return_cost=True, **kw)
+    check(torch.equal(kd, out[0]), f"{where}: K3's map differs from the "
+          f"path's launch on the same planes")
+    pd, pc = gsw_cuda._gsw_pass_plain(a["planes"], return_cost=True, **kw)
+    return compare_pass((kc, kd, None, None), (pc, pd, None, None),
+                        kw["min_disp"], where, flat_ok)
+
+
+def examples_phase(dev, card):
+    """Phase 30: the 19 example scripts no other phase runs, on the card,
+    on a stand-in resource tree at the reference's sizes: their truths,
+    the kernels on the scripts' own inputs against their twins, the
+    launch counts, the outputs of the cheap ones against the same script
+    with --device cpu, and each script's host-clock seconds."""
+    import pathlib
+    import tempfile
+    import torch.distributed as dist
+
+    import simplestereo_tpu_torch as tss
+    from simplestereo_tpu_torch import parallel, unwrapping
+    from simplestereo_tpu_torch.imgio import imread
+    from simplestereo_tpu_torch.passive import (asw_cuda, gsw_cuda, sgm,
+                                                sgm_cuda, wls)
+    from simplestereo_tpu_torch.probes import rotate
+    from simplestereo_tpu_torch.videoio import VideoWriter
+
+    res = example_res()
+    counters = {"K1": asw_cuda, "K2": sgm_cuda, "K3": gsw_cuda, "K4": rotate,
+                "S1": unwrapping, "S2": wls}
+    tmp = tempfile.TemporaryDirectory()
+    work = pathlib.Path(tmp.name)
+    t0 = time.perf_counter()
+    root = work / "res"
+    truth = res.build_res(root, EXAMPLES_SIZE, device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    secs, ms, counts = {}, {}, {}
+
+    def run(name, argv=(), spies=(), device=None):
+        """The script in a folder of its own (on the card unless
+        ``device``), the counts set to 0 just before and read just after,
+        and the calls of each (owner, name) in ``spies`` kept. Returns
+        (folder, printout, {"owner.name": calls})."""
+        tag = name.split("_")[0]
+        cwd = work / (tag + ("" if device is None else "_" + device))
+        cwd.mkdir()
+        with contextlib.ExitStack() as stack:
+            kept = {f"{owner.__name__.rsplit('.', 1)[-1]}.{attr}":
+                    stack.enter_context(calls_of(owner, attr))
+                    for owner, attr in spies}
+            for m in counters.values():
+                m.launches = 0
+            t = time.perf_counter()
+            out = res.run_script(name, root, cwd, argv, device=device)
+            if device is None:
+                torch.cuda.synchronize()
+                secs[tag] = time.perf_counter() - t
+                counts[tag] = {k: m.launches for k, m in counters.items()}
+        if device is None:
+            want = EXAMPLE_KERNELS.get(tag, set())
+            check(all(counts[tag][k] > 0 for k in want)
+                  and not any(counts[tag][k] for k in counters
+                              if k not in want),
+                  f"example {tag}: launches {counts[tag]}, expected "
+                  f"{sorted(want)} only")
+        return cwd, out, kept
+
+    def matcher_ms(tag, calls):
+        ms[tag] = ", ".join(f"{c[2] * 1e3:.2f}" for c in calls)
+
+    def k2_equal(calls, where):
+        for a, S, _ in calls:
+            twin = sgm_cuda._aggregate(a["C"], float(a["P1"]), float(a["P2"]),
+                                       a["paths"])
+            check(torch.equal(S, twin), f"{where}: K2's S on the script's "
+                  f"volume {tuple(a['C'].shape)} differs from the twin, max "
+                  f"abs {(S - twin).abs().max().item():.3g}")
+        return len(calls)
+
+    SGM, ASW, GSW = (tss.passive.StereoSGM, tss.passive.StereoASW,
+                     tss.passive.StereoGSW)
+    k_err = {}
+
+    # 001, 007, 102: no resources, no kernel.
+    d, out, _ = run("001_calibration_chessboard.py")
+    check((d / "chessboard.svg").stat().st_size > 0, "001: no chessboard.svg")
+    d, out, _ = run("007_use_raw_camera_data.py")
+    check(abs(res.numbers(out)[0] - 60.0) < 1e-9, f"007 printed {out!r}")
+    d, out, _ = run("102_cam_proj_capture.py")
+    check(len(list((d / "graycode_patterns").iterdir())) == 44,
+          "102: not 44 patterns")
+
+    # 002 on two generated AVIs of 1280x720 frames.
+    rng = np.random.default_rng(SEED + 30)
+    avis = []
+    for side in "LR":
+        p = work / f"cam_{side}.avi"
+        with VideoWriter(str(p), fps=30.0, codec="DIB ") as wr:
+            for _ in range(4):
+                wr.write(rng.integers(0, 256, (720, 1280, 3), np.uint8))
+        avis.append(p)
+    d, out, _ = run("002_capture_image_pairs.py", avis)
+    check(all((d / f"{i}_{s}.png").exists() for i in range(10) for s in "LR"),
+          "002: not 10 saved pairs")
+
+    # 003a, 003b: calibration of the rendered boards.
+    calib = root / "1" / "calib"
+    d, out, _ = run("003a_calibrate_single_camera.py", [calib])
+    rms_a = float(res.numbers(out)[0])
+    check(rms_a < 0.12, f"003a: RMS {rms_a}")
+    d, out, _ = run("003b_build_stereo_rig.py", [calib])
+    rig = tss.StereoRig.fromFile(str(d / "rig.json"), device="cpu")
+    _, _, K1, K2, _, _, R, T = truth["1"]["rig_args"]
+    cal = (rig.reprojectionError,
+           max(np.abs(rig.intrinsic1 - K1).max(),
+               np.abs(rig.intrinsic2 - K2).max()),
+           np.abs(rig.R - R).max(), np.abs(rig.T.ravel() - T.ravel()).max())
+    check(cal[0] < 0.12 and cal[1] < 5.0 and cal[2] < 2e-3 and cal[3] < 0.5,
+          f"003b: RMS, |K - K_true|, |R - R_true|, |T - T_true| {cal}")
+
+    # 004a, 004b, 005, 006, 101, 103: on the card and on the CPU.
+    cpu_diff = {}
+    for name in ("004a_undistort_images.py", "004b_draw_epipolar_lines.py",
+                 "006_rectify_images.py"):
+        d, _, _ = run(name)
+        c, _, _ = run(name, device="cpu")
+        pngs = sorted(f.name for f in d.glob("*.png"))
+        check(len(pngs) == 2, f"{name}: wrote {pngs}")
+        cpu_diff[name.split("_")[0]] = max(res.uint8_close(imread(str(d / f)),
+                                                 imread(str(c / f)))
+                                 for f in pngs)
+    d, _, _ = run("005_rectify_rig.py")
+    c, _, _ = run("005_rectify_rig.py", device="cpu")
+    cpu_diff["005"] = res.json_close(d / "rigRect.json", c / "rigRect.json")
+    SL = tss.StructuredLightRig
+    d, out, kept = run("101_structured_light_rig.py",
+                       spies=[(SL, "triangulate")])
+    _, out_cpu, _ = run("101_structured_light_rig.py", device="cpu")
+    res.numbers_close(out_cpu, out)
+    a, world, _ = kept["StructuredLightRig.triangulate"][0]
+    tri = res.triangulation_residual(a["self"], a["camPoints"],
+                                     a["projPoints"], world)
+    check(tri < 1e-6, f"101: triangulation residual {tri:.3g} px")
+    FTP = tss.active.StereoFTP
+    d, out, kept = run("103_stereo_ftp.py", spies=[(FTP, "getCloud")])
+    c, _, kept_cpu = run("103_stereo_ftp.py", spies=[(FTP, "getCloud")],
+                         device="cpu")
+    cloud = kept["StereoFTP.getCloud"][0][1]
+    cpu_diff["103"] = res.cloud_close(cloud,
+                                      kept_cpu["StereoFTP.getCloud"][0][1])
+    check(res.ply_layout(d / "scan.ply") == res.ply_layout(c / "scan.ply"),
+          "103: PLY layouts differ from the CPU path's")
+    ftp_z = res.plane_z(cloud, truth["stereoFTP"]["z0"])
+    check(ftp_z[0] < 0.02 and ftp_z[1] < 0.05, f"103: z off by {ftp_z}")
+
+    # 008, 009, 011: the lawn pair at 1280x720.
+    lawn = truth["2"]
+    d, _, kept = run("008_stereo_matching_sgm.py",
+                     spies=[(SGM, "compute"), (sgm, "aggregate")])
+    matcher_ms("008", kept["StereoSGM.compute"])
+    share = {"008": res.plane_share(kept["StereoSGM.compute"][0][1] / 16,
+                                    lawn, 1, 7, 96)}
+    k2_equal(kept["sgm.aggregate"], "008")
+    del kept
+    d, _, kept = run("009_stereo_matching_asw.py",
+                     spies=[(ASW, "compute"), (asw_cuda, "_asw_pass")])
+    matcher_ms("009", kept["StereoASW.compute"])
+    share["009"] = res.plane_share(kept["StereoASW.compute"][0][1], lawn, 1,
+                                   35, 90)
+    a, out_k, _ = kept["asw_cuda._asw_pass"][0]
+    check(a["step"] == 2 and a["max_disp"] == 90, f"009: K1 given {a}")
+    k_err["009 K1"] = k1_on_path(a.pop("planes"), a, out_k, "009",
+                                 flat_ok=True)
+    del kept, a, out_k
+    d, _, kept = run("011_build_3d_point_cloud.py",
+                     spies=[(SGM, "compute"), (SGM, "_speckles"),
+                            (sgm, "aggregate"), (wls, "_solve"),
+                            (tss.passive, "wls_filter_disparity")])
+    matcher_ms("011", kept["StereoSGM.compute"])
+    ms["011 speckles"] = round(kept["StereoSGM._speckles"][0][2] * 1e3, 2)
+    ms["011 WLS"] = round(
+        kept["passive.wls_filter_disparity"][0][2] * 1e3, 2)
+    share["011"] = res.plane_share(kept["StereoSGM.compute"][0][1] / 16,
+                                   lawn, 1, 7, 96)
+    k2_equal(kept["sgm.aggregate"], "011")
+    for a, x, _ in kept["wls._solve"]:
+        check(torch.equal(x, wls._solve_plain(**a)), "011: S2 differs from "
+              "the twin on the script's solve")
+    n_s2 = len(kept["wls._solve"])
+    del kept
+    check(all(v >= res.PLANE_BAR for v in share.values()),
+          f"lawn plane shares {share}")
+
+    # 010, 201, 204: the Tsukuba stand-in at 384x288.
+    d, out, kept = run("010_stereo_matching_tsukuba.py",
+                       spies=[(SGM, "compute"), (ASW, "compute"),
+                              (GSW, "compute"),
+                              (tss.passive, "quality_disparity"),
+                              (sgm, "aggregate"), (asw_cuda, "_asw_pass"),
+                              (gsw_cuda, "_gsw_pass")])
+    lines = res.tsukuba_lines(out)
+    check(list(lines) == ["ASW", "SGM", "GSW", "quality preset"] and all(
+        lines[k]["bad2"] < res.TSUKUBA_BAD2[k] for k in lines),
+        f"010: {lines}")
+    for m in ("ASW", "SGM", "GSW"):
+        matcher_ms(f"010 {m}", kept[f"Stereo{m}.compute"])
+    matcher_ms("010 preset", kept["passive.quality_disparity"])
+    k2_equal(kept["sgm.aggregate"], "010")
+    for i, (a, o, _) in enumerate(kept["asw_cuda._asw_pass"]):
+        k_err[f"010 K1 {i}"] = k1_on_path(
+            a.pop("planes"), a, o, f"010 K1 {i}", flat_ok=True)
+    for i, (a, o, _) in enumerate(kept["gsw_cuda._gsw_pass"]):
+        k_err[f"010 K3 {i}"] = k3_on_path(a, o, f"010 K3 {i}", flat_ok=True)
+    del kept
+    check(not dist.is_initialized(), "201: a process group is up")
+    real = {f: getattr(parallel, f) for f in (
+        "tiled_asw_disparity", "tiled_sgm_disparity", "tiled_gsw_disparity")}
+    d, out, kept = run("201_multichip_tiled_matching.py",
+                       spies=[(parallel, f) for f in real])
+    for f, fn in real.items():
+        a, tiled, _ = kept[f"parallel.{f}"][0]
+        single = res.single_call(fn, (), a, tiled.device)
+        check(torch.equal(tiled, single), f"201: {f} differs from the "
+              "single-call matcher")
+    check(len(out.splitlines()) == 3 and not dist.is_initialized(),
+          f"201 printed {out!r}")
+    del kept
+    d, out, kept = run("204_radiometric_auto_matching.py",
+                       [root / "tsukuba"],
+                       spies=[(GSW, "compute"), (gsw_cuda, "_gsw_pass")])
+    matcher_ms("204", kept["StereoGSW.compute"])
+    auto = res.auto_lines(out)
+    check([auto[0]["pick"], auto[1]["pick"]] == ["sd", "mi"]
+          and auto[0]["bad2"] < res.AUTO_BAD2
+          and auto[1]["bad2"] < res.AUTO_BAD2
+          and auto[2]["bad2"] > res.SD_COLLAPSE, f"204: {auto}")
+    k3 = kept["gsw_cuda._gsw_pass"]
+    mi = [a.get("ext_vol", False) for a, _, _ in k3]
+    check(any(mi) and not all(mi), f"204: K3 ext_vol per call {mi}")
+    for i, (a, o, _) in enumerate(k3):
+        k_err[f"204 K3 {i}"] = k3_on_path(a, o, f"204 K3 {i}", flat_ok=True)
+    del kept
+
+    # 203 at its defaults.
+    d, out, _ = run("203_batch_scanning.py")
+    off = [float(x) for x in re.findall(r"\(([\d.]+) % off\)", out)]
+    check(len(off) == 4 and max(off) < 2.0, f"203: {out!r}")
+    tmp.cleanup()
+
+    scripts = {f.name.split("_")[0] for f in pathlib.Path(
+        tss.__file__).parent.joinpath("examples").glob("[0-9]*.py")}
+    check(set(secs) == scripts - {"202"}, f"phase 30 ran {sorted(secs)}, "
+          f"not every script but 202 of {sorted(scripts)}")
+    worst = [max(e[i] for e in k_err.values()) for i in range(3)]
+    flats = {k: e[3] for k, e in k_err.items() if e[3]}
+    n = {k: {c: v for c, v in counts[k].items() if v}
+         for k in sorted(counts) if any(counts[k].values())}
+    sizes = ", ".join(f"{k} {w}x{h}" for k, (w, h)
+                      in res.SIZES[EXAMPLES_SIZE].items())
+    print(f"phase 30 examples: the {len(secs)} scripts of "
+          f"simplestereo_tpu_torch/examples/ no other phase runs, on the "
+          f"card, on tests/torch_example_res.py's {EXAMPLES_SIZE} tree "
+          f"(built in {build_s:.2f} s; {sizes}; the lawn at rectified "
+          f"disparity {lawn['disp']:g}) | truths: 003b RMS {cal[0]:.4f}, "
+          f"|K - K_true| {cal[1]:.3g}, |R - R_true| {cal[2]:.3g}, "
+          f"|T - T_true| {cal[3]:.3g}; lawn interior within 1 px "
+          + ", ".join(f"{k} {v:.2%}" for k, v in share.items())
+          + "; 010 bad-2.0 " + ", ".join(f"{k} {v['bad2']:.2f}%"
+                                        for k, v in lines.items())
+          + f"; 204 auto {auto[0]['pick']} {auto[0]['bad2']}%, "
+          f"{auto[1]['pick']} {auto[1]['bad2']}%, fixed sd "
+          f"{auto[2]['bad2']}%; 103 |median z - z0| {ftp_z[0]:.3%}, p80 "
+          f"{ftp_z[1]:.3%}; 101 residual {tri:.3g} px; 201 tiles equal to "
+          f"one call; 203 worst {max(off):.2f}% off | kernels on the "
+          f"scripts' inputs: K2's S torch.equal to the twin (008, 010, 011),"
+          f" S2 torch.equal on 011's {n_s2} solves, K1 (009's 720p D=90 "
+          f"step 2 in three bands; 010's two passes) and K3 (010; 204's "
+          f"{len(mi)} SD and MI passes) under compare_pass: max abs err "
+          f"{worst[0]:.3g} rel {worst[1]:.3g} map mismatch {worst[2]:.4%} "
+          f"(limit {MISMATCH:.0%}); flips at flat pixels, each the first "
+          f"argmin of the kernel's own costs, {flats} | "
+          f"launches {n} | card vs --device cpu: "
+          + ", ".join(f"{k} {v:.3g}" for k, v in cpu_diff.items())
+          + " | host clock s a script: "
+          + ", ".join(f"{k} {v:.2f}" for k, v in secs.items())
+          + " | matcher ms (host clock, the script's call): "
+          + ", ".join(f"{k} {v}" for k, v in ms.items()) + f" | {card}")
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False: needs a "
@@ -3421,7 +3592,7 @@ def main():
     p_ms, _ = cuda_ms(run_p, tsu[:4])
     k = run_k(tsu[0])
     p = run_p(tsu[0])
-    abs_err, rel_err, mism = compare_pass(
+    abs_err, rel_err, mism, _ = compare_pass(
         k, p, pkw["min_disp"], "main path 384x288")
     print(f"phase 6a 384x288 D={D} win 35: kernel {k_ms:.3f} ms "
           f"({rate(288, 384, 1, k_ms):.1f} Mpix*disp/s; L1 path, the first "
@@ -3498,6 +3669,7 @@ def main():
     counts = timed("28", distributed_phase, dev, card)
     carry_entry["launches"] = counts["sgm"]
     timed("29", formats_phase, dev, card)
+    timed("30", examples_phase, dev, card)
     print("phase wall times (host clock, s, build included in 1-6): "
           + ", ".join(f"{k} {v:.1f}" for k, v in walls.items())
           + f"; total {time.perf_counter() - start:.1f} | {card}")

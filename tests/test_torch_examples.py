@@ -6,8 +6,9 @@ generated AVIs (and on directories of PNGs), 202 and 203 (as the JAX
 package's tests/test_examples.py runs them), 001, 007 and 102. The others
 read the reference's resources and skip where they are absent, as
 tests/test_examples.py does (201, the row-tiled matchers, runs as a gloo
-world of one with ``--device cpu``). Each port keeps its JAX script's
-name.
+world of one with ``--device cpu``); the files of ``AGAINST_JAX`` run
+them, and 001, 007 and 102, on a stand-in tree against the JAX scripts.
+Each port keeps its JAX script's name.
 """
 
 import os
@@ -51,6 +52,14 @@ def _run(name, tmp_path, monkeypatch, argv=()):
         torch.set_num_threads(threads)
 
 
+# The files that hold each script of NEEDS_RES and SELF_CONTAINED against
+# its JAX script on a stand-in resource tree (tests/torch_example_res.py).
+AGAINST_JAX = ["test_torch_examples_rig.py", "test_torch_examples_match.py",
+               "test_torch_examples_tsukuba.py",
+               "test_torch_examples_radiometric.py",
+               "test_torch_examples_tiled.py"]
+
+
 def test_every_example_has_a_port():
     jax = {f for f in os.listdir(JAX_EXAMPLES) if f.endswith(".py")}
     port = {f for f in os.listdir(EXAMPLES) if f[0].isdigit()}
@@ -59,6 +68,10 @@ def test_every_example_has_a_port():
     assert set(SELF_CONTAINED + NEEDS_RES) | {
         "002_capture_image_pairs.py", "202_streaming_pipeline.py",
         "203_batch_scanning.py"} == port
+    tests = os.path.dirname(os.path.abspath(__file__))
+    text = "".join(open(os.path.join(tests, f)).read() for f in AGAINST_JAX)
+    missing = [n for n in NEEDS_RES + SELF_CONTAINED if f'"{n}"' not in text]
+    assert missing == [], f"no case against the JAX script: {missing}"
 
 
 @pytest.mark.parametrize("name", SELF_CONTAINED)
