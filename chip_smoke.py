@@ -1359,12 +1359,21 @@ def ply_phase(card, pts, img):
 
 # Phase 18: the S1 kernel against its twin, bit for bit, in both
 # precisions, on a phase wrapped from a smooth field plus noise
-# (probes.iir_variants.wrapped_phase). Shapes:
-# one row, one column, a small ragged block, 720p, and more rows (1,100)
-# than one block has threads (1,024).
-IIR_SHAPES = ((1, 1280), (720, 1), (33, 47), (720, 1280), (1100, 64))
+# (probes.iir_variants.wrapped_phase). Shapes: one row, one column, a
+# small ragged block (two bands), 720p (a last band of 16 rows), 1,100
+# rows (35 bands, three warps a CTA) at 64 and 333 columns, and 333 rows
+# (a last band of 13) at 517.
+IIR_SHAPES = ((1, 1280), (720, 1), (33, 47), (720, 1280), (1100, 64),
+              (333, 517), (1100, 333))
 IIR_TAUS = (0.0, 0.5, 1.0)
 IIR_TIMED = (720, 1280)
+# Plans besides the wrapper's (the first): the smallest ring (two chunks
+# of two columns); two CTAs of one warp (bands wrap round two warps, a
+# ring holds a row) in chunks of 4; a portable cluster of 8 with rings of
+# 4 chunks of 32.
+IIR_PLANS = ({}, dict(chunk=2, slots=2),
+             dict(cluster=2, warps_per_cta=1, chunk=4, slots=2),
+             dict(cluster=8, chunk=32, slots=4))
 
 
 def iir_phase(dev, card):
@@ -1372,7 +1381,7 @@ def iir_phase(dev, card):
     the card at every shape, precision and tau; CUDA-event times of
     kernel and twin at 720p against the chain and the bytes. Returns the
     largest |kernel - twin| measured."""
-    from simplestereo_tpu_torch import unwrapping
+    from simplestereo_tpu_torch import _build, unwrapping
     from simplestereo_tpu_torch.probes.iir_variants import wrapped_phase
 
     n_cases, max_err, p_ms = 0, 0.0, {}
@@ -1380,11 +1389,8 @@ def iir_phase(dev, card):
     for h, w in IIR_SHAPES:
         for dtype in (np.float32, np.float64):
             t = torch.tensor(wrapped_phase(h, w, dtype), device=dev)
-            # the plan's ring (a slot per row) and the smallest ring
-            # that keeps live rows apart (slot y % ring_rows)
-            plans = [unwrapping._plan(h, w, t.element_size()),
-                     unwrapping._plan(h, w, t.element_size(),
-                                      ring_rows=min(h, w // 2 + 2))]
+            plans = [unwrapping._plan(h, w, t.element_size(), **kw)
+                     for kw in IIR_PLANS]
             for tau in IIR_TAUS:
                 a = torch.cuda.Event(enable_timing=True)
                 b = torch.cuda.Event(enable_timing=True)
@@ -1403,11 +1409,22 @@ def iir_phase(dev, card):
                     err = (k - p).abs().max().item()
                     max_err = max(max_err, err)
                     check(k.dtype == t.dtype and torch.equal(k, p),
-                          f"S1 {h}x{w} {dtype.__name__} tau {tau} ring "
-                          f"{plan['ring_rows']}: kernel differs from twin, "
-                          f"max abs {err:.3g}")
+                          f"S1 {h}x{w} {dtype.__name__} tau {tau} plan "
+                          f"{plan}: kernel differs from twin, max abs "
+                          f"{err:.3g}")
                 n_cases += 1
     cases_s = time.perf_counter() - t0
+    # The kernel's division by 3 against the IEEE division: every float
+    # in its range, 2^30 doubles.
+    lib = _build.load_library("iir_unwrap_kernel")
+    bad = torch.zeros(2, dtype=torch.int64, device=dev)
+    err = lib.iir_div3_check(bad.data_ptr(), dev.index,
+                             torch.cuda.current_stream(dev).cuda_stream)
+    check(err == 0, "S1 div3 check launch: "
+          + lib.iir_error_string(err).decode())
+    bad = bad.tolist()
+    check(bad == [0, 0], f"S1 div3 differs from the IEEE division on "
+          f"{bad[0]} floats and {bad[1]} of 2^30 doubles")
     h, w = IIR_TIMED
     k_ms = {}
     for dtype in (np.float32, np.float64):
@@ -1415,18 +1432,33 @@ def iir_phase(dev, card):
                for i in range(6)]
         k_ms[dtype], _ = cuda_ms(lambda x: unwrapping._iir_unwrap(x, 0.5),
                                  ins)
-    steps = w + 2 * (h - 1) + 2 * (w - 1)
+        row = [t[:1].contiguous() for t in ins]
+        k_ms["row", dtype], _ = cuda_ms(
+            lambda x: unwrapping._iir_unwrap(x, 0.5), row)
+    plan = unwrapping._plan(h, w, 4)
+    bands = -(-h // unwrapping.LANES)
+    # the transient, then the last band W + 62 steps after it starts,
+    # each band 64 + chunk steps after the one above
+    steps = (2 * (w - 1) + (bands - 1) * (64 + plan["chunk"]) + w
+             + 2 * (h - (bands - 1) * 32 - 1))
     bound_ms, bound_by = s1_bound(h, w, 4)
     k32, k64 = k_ms[np.float32], k_ms[np.float64]
     print(f"phase 18 S1 IIR unwrap kernel vs twin: torch.equal on {n_cases} "
           f"cases ({', '.join(f'{a}x{b}' for a, b in IIR_SHAPES)}; float32 "
-          f"and float64; tau {IIR_TAUS}), each with a slot per row and with "
-          f"the smallest ring, max |kernel - twin| {max_err:g}, "
-          f"{cases_s:.1f} s | {w}x{h}, tau 0.5: kernel "
-          f"{k32:.3f} ms float32, {k64:.3f} ms float64; twin "
-          f"{p_ms[np.float32]:.1f} / {p_ms[np.float64]:.1f} ms; chain "
-          f"{steps} dependent steps ({k32 * 1e6 / steps:.0f} ns a step in "
-          f"float32); bound {bound_ms:.4f} ms ({bound_by}) | {card}")
+          f"and float64; tau {IIR_TAUS}), each on the plan and on "
+          f"{len(IIR_PLANS) - 1} smaller ones ({IIR_PLANS[1:]}), max "
+          f"|kernel - twin| {max_err:g}, {cases_s:.1f} s; div3 equal to "
+          f"the IEEE division on every float in range and 2^30 doubles "
+          f"| {w}x{h}, tau "
+          f"0.5, plan {plan}: kernel {k32:.3f} ms float32, {k64:.3f} ms "
+          f"float64; one row alone (the transient and {w} steps) "
+          f"{k_ms['row', np.float32]:.3f} / {k_ms['row', np.float64]:.3f} "
+          f"ms; twin {p_ms[np.float32]:.1f} / {p_ms[np.float64]:.1f} ms; "
+          f"the chain {steps} dependent steps ({k32 * 1e6 / steps:.0f} ns a "
+          f"step in float32); bound {bound_ms:.4f} ms ({bound_by}) | "
+          f"registers/spill bytes: "
+          f"{ptxas_summary(_build.compile_log('iir_unwrap_kernel'))} | "
+          f"{card}")
     return max_err
 
 
@@ -1461,13 +1493,15 @@ def s1_main_path(dev, phase, unwrapped, max_err):
           f"S1 on the FTP phase {tuple(t.shape)}: kernel differs from twin, "
           f"max abs {err:.3g}")
     ms, _ = cuda_ms(lambda x: unwrapping._iir_unwrap(x, 1.0), [t] * 6)
+    chain_ms, _ = cuda_ms(lambda x: unwrapping._iir_unwrap(x, 1.0),
+                          [t[:1].contiguous()] * 6)
     bound_ms, bound_by = s1_bound(*t.shape, t.element_size())
     return {"name": "iir_unwrap", "route": "cuda",
             "source": "simplestereo_tpu_torch/csrc/iir_unwrap_kernel.cu",
             "replaces": "simplestereo_tpu/unwrapping.py:142",
             "launches": None, "max_abs_err": max(err, max_err), "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": None}
+            "bound_by": bound_by, "library_ms": None, "chain_ms": chain_ms}
 
 
 # Phases 19-20: 3-D scanning at 1280x720, camera and projector: the
@@ -1791,13 +1825,12 @@ def ftp_phase(dev, card, s1_max_err):
 # 2), lambda_t of the first of 3 iterations; and 70,000 frames of 4x5
 # (past grid y's 65,535: two launches) against the same stack in pieces.
 S2_SHAPES = ((1, 1, 1280), (1, 720, 1), (1, 33, 47), (1, 720, 1280),
-             (8, 96, 128))
+             (8, 96, 128), (2, 20, 29), (1, 100, 1000))
 S2_REGIMES = (dict(lam=2.0, sigma=8.0, invalid=0.05),
               dict(lam=128.0, sigma=2.0, invalid=0.0))
 S2_DEEP = (70_000, 4, 5)
 S2_TIMED = (720, 1280)
-# One line this long is one thread's chain: its time a position is the
-# latency of a forward and a backward step.
+# One line this long is one warp's: its segments are 513 positions.
 S2_CHAIN = 16_384
 
 
@@ -1898,10 +1931,12 @@ def s2_phase(dev, card):
     conf, wx, wy, u = ins[0]
     px, _ = event_ms(lambda: wls._solve_plain(conf, wx, u, lam_t, False))
     py, _ = event_ms(lambda: wls._solve_plain(conf, wy, u, lam_t, True))
+    qx = queued_ms(lambda x: wls._solve(x[0], x[1], x[3], lam_t, False),
+                   ins)
+    qy = queued_ms(lambda x: wls._solve(x[0], x[2], x[3], lam_t, True), ins)
     line = s2_inputs(1, 1, S2_CHAIN, 8.0, 0.0, dev)
     l_ms, _ = cuda_ms(lambda x: wls._solve(x[0], x[1], x[3], lam_t, False),
                       [line] * 4)
-    step_ns = l_ms * 1e6 / S2_CHAIN
     bx = s2_bound(1, h, w, False)
     by = s2_bound(1, h, w, True)
     shapes = ", ".join(f"{b}x{c}x{d}" for b, c, d in S2_SHAPES)
@@ -1910,12 +1945,12 @@ def s2_phase(dev, card):
           f"{S2_DEEP[0]} frames of {S2_DEEP[2]}x{S2_DEEP[1]} in two "
           f"launches, equal to the stack in pieces), max |kernel - twin| "
           f"{max_err:g}, {cases_s:.1f} s | {w}x{h}: row solve {kx:.4f} ms, "
-          f"column solve {ky:.4f} ms, 3 iterations (6 solves) {fgs:.3f} "
-          f"ms; twin {px:.1f} / {py:.1f} ms; bound {bx[0]:.4f} / "
-          f"{by[0]:.4f} ms ({bx[1]}); chain: one line of {S2_CHAIN} "
-          f"positions {l_ms:.3f} ms = {step_ns:.1f} ns a position, so "
-          f"{w * step_ns * 1e-6:.4f} / {h * step_ns * 1e-6:.4f} ms for a "
-          f"row / column | registers/spill bytes: "
+          f"column solve {ky:.4f} ms (queued: {qx:.4f} / {qy:.4f}), 3 "
+          f"iterations (6 solves) {fgs:.3f} ms; twin {px:.1f} / {py:.1f} "
+          f"ms; bound {bx[0]:.4f} / {by[0]:.4f} ms ({bx[1]}); one line of "
+          f"{S2_CHAIN} positions alone (segments of "
+          f"{wls._segment(S2_CHAIN)}) {l_ms:.3f} ms | registers/spill "
+          f"bytes: "
           f"{ptxas_summary(_build.compile_log('thomas_kernel'))} | {card}")
     return max_err
 
@@ -2107,13 +2142,18 @@ def s2_main_path(conf, w, u, lam_t, along_y, main, launches, s2_max_err):
           f"from twin, max abs {err:.3g}")
     ms, _ = cuda_ms(lambda x: wls._solve(conf, w, u, lam_t, along_y),
                     [None] * 6)
+    # one line of the solve on its own
+    one = [t[:, :1].contiguous() if not along_y else t[..., :1].contiguous()
+           for t in (conf, w, u)]
+    chain_ms, _ = cuda_ms(lambda x: wls._solve(*one, lam_t, along_y),
+                          [None] * 6)
     bound_ms, bound_by = s2_bound(*conf.shape, along_y)
     return {"name": "thomas_solve", "route": "cuda",
             "source": "simplestereo_tpu_torch/csrc/thomas_kernel.cu",
             "replaces": "simplestereo_tpu/passive/wls.py:32",
             "launches": launches, "max_abs_err": max(err, s2_max_err),
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": None}
+            "bound_by": bound_by, "library_ms": None, "chain_ms": chain_ms}
 
 
 # Phase 23: calibration at 1280x720. Ten chessboard pairs (7x6 inner

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Times the SGM (K2) and GSW (K3) kernels of two checkouts on one card,
-in turns.
+"""Times the SGM (K2), GSW (K3), IIR unwrapping (S1) and WLS line-solve
+(S2) kernels of two checkouts on one card, in turns.
 
     python3 kernel_compare.py OTHER_CHECKOUT [--rounds N]
 
@@ -16,11 +16,19 @@ excluded):
   depend on the values);
 - ``gsw_cuda._gsw_pass`` at 384x288 and 1280x720, win 23, d 4..14,
   gamma 12.5, fMax 20, both matching directions (the StereoGSW main point),
-  on seeded noise pairs with a shift of 5.
+  on seeded noise pairs with a shift of 5;
+- ``unwrapping._iir_unwrap`` (tau 1) on wrapped phases of FTP's 1248x688
+  (the shape ``getCloud`` hands ``infiniteImpulseResponse`` at 1280x720)
+  and of 1280x720, float32 and float64;
+- ``wls._solve``: the row and the column solve of the SGM preset's WLS at
+  1280x720 (lambda_t of the first of 3 iterations at lambda 2; weights
+  of a noise guide at sigma 8; 5% zero-confidence markers).
 
-Each worker prints one JSON line; the last lines are the card's name and
-power limit and a summary (the better of each checkout's runs). Needs a
-CUDA card and nvcc; imports no JAX.
+S1 and S2 are also timed queued behind a sleep on the stream (``_queued``:
+the device's time a call, without the host's dispatch, which a lone
+call's events hold too). Each worker prints one JSON line; the last lines
+are the card's name and power limit and a summary (the better of each
+checkout's runs). Needs a CUDA card and nvcc; imports no JAX.
 """
 
 import json
@@ -29,8 +37,37 @@ import sys
 from pathlib import Path
 
 SGM_SHAPES = [(720, 1280, 128), (288, 384, 16)]
+IIR_SHAPES = [(688, 1248), (720, 1280)]
 GSW_SHAPES = [(288, 384), (720, 1280)]
 GSW_KW = dict(win_size=23, min_disp=4, max_disp=14, gamma=12.5, f_max=20.0)
+
+
+def wrapped_phase(h, w, dtype, seed):
+    """A wrapped phase map: a tilted plane, a bump and noise."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    y, x = np.mgrid[0:h, 0:w].astype(np.float64)
+    phi = 0.21 * x + 0.13 * y + 3 * np.exp(
+        -((x - w / 2) ** 2 + (y - h / 2) ** 2) / (0.1 * (h * w + 1)))
+    phi += rng.normal(0, 0.2, (h, w))
+    return np.angle(np.exp(1j * phi)).astype(dtype)
+
+
+def wls_inputs(h, w, seed, dev):
+    """(conf, wx, wy, u) of one frame as the smoother builds them: noise
+    guide weights at sigma 8, disparities around 20, 5% markers."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    d = rng.normal(20, 5, (1, h, w)).astype(np.float32)
+    conf = (rng.random((1, h, w)) >= 0.05).astype(np.float32)
+    g = rng.integers(0, 256, (1, h, w, 3)).astype(np.float32)
+    dx = np.abs(np.diff(g, axis=2)).sum(-1)
+    dy = np.abs(np.diff(g, axis=1)).sum(-1)
+    t = [torch.tensor(a, device=dev) for a in
+         (conf, np.exp(-dx / 8).astype(np.float32),
+          np.exp(-dy / 8).astype(np.float32), d * conf)]
+    return t
 
 
 def worker():
@@ -38,8 +75,9 @@ def worker():
     import numpy as np
     import torch
 
-    from chip_smoke import cuda_ms  # blocks JAX, as the port must run
-    from simplestereo_tpu_torch.passive import gsw_cuda, sgm_cuda
+    from chip_smoke import cuda_ms, queued_ms  # blocks JAX, as the port must
+    from simplestereo_tpu_torch import unwrapping
+    from simplestereo_tpu_torch.passive import gsw_cuda, sgm_cuda, wls
 
     dev = torch.device("cuda", 0)
 
@@ -69,6 +107,20 @@ def worker():
         out[f"gsw_{w}x{h}"] = events(
             lambda p: gsw_cuda._gsw_pass(p, H=h, W=w, **GSW_KW), planes)
         del planes
+    for h, w in IIR_SHAPES:
+        for dtype in (np.float32, np.float64):
+            phases = [torch.tensor(wrapped_phase(h, w, dtype, i),
+                                   device=dev) for i in range(6)]
+            fn = lambda x: unwrapping._iir_unwrap(x, 1.0)  # noqa: E731
+            out[f"s1_{w}x{h}_{dtype.__name__}"] = events(fn, phases)
+            out[f"s1_{w}x{h}_{dtype.__name__}_queued"] = queued_ms(fn, phases)
+    lam_t = wls._lam_schedule(2.0, 3, 1)
+    stacks = [wls_inputs(720, 1280, i, dev) for i in range(6)]
+    for name, along_y in (("row", False), ("column", True)):
+        fn = lambda x: wls._solve(  # noqa: E731
+            x[0], x[2 if along_y else 1], x[3], lam_t, along_y)
+        out[f"s2_{name}_1280x720"] = events(fn, stacks)
+        out[f"s2_{name}_1280x720_queued"] = queued_ms(fn, stacks)
     print(json.dumps(out), flush=True)
 
 

@@ -99,14 +99,19 @@ _SIGNATURES = {
         "rotate_error_string": ([_I], ctypes.c_char_p),
     },
     "iir_unwrap_kernel": {
-        # phase, out, work, H, W, tau, double, threads, ring, smem, device,
-        # stream
-        "iir_unwrap": ([_P] * 3 + [_I] * 2 + [_D] + [_I] * 5 + [_P], _I),
+        # phase, out, H, W, tau, double, warps_per_cta, ctas, chunk, slots,
+        # smem, device, stream
+        "iir_unwrap": ([_P] * 2 + [_I] * 2 + [_D] + [_I] * 7 + [_P], _I),
+        # mismatches (uint64[2]), device, stream: div3 against the IEEE
+        # division (every float in range, 2^30 doubles)
+        "iir_div3_check": ([_P, _I, _P], _I),
         "iir_error_string": ([_I], ctypes.c_char_p),
     },
     "thomas_kernel": {
-        # conf, w, u, out, work, B, H, W, along_y, lam, eps, device, stream
-        "thomas_solve": ([_P] * 5 + [_I] * 4 + [_F] * 2 + [_I, _P], _I),
+        # conf, w, u, out, B, H, W, along_y, lam, eps, segment, lines,
+        # stride, smem, device, stream
+        "thomas_solve": ([_P] * 4 + [_I] * 4 + [_F] * 2 + [_I] * 5 + [_P],
+                         _I),
         "thomas_error_string": ([_I], ctypes.c_char_p),
     },
     "ply": {

@@ -16,6 +16,12 @@ Thomas algorithm along every line. The JAX package writes it as two
 stack, either axis) and adds one to :data:`launches`, a CPU stack runs the
 plain twin :func:`_solve_plain`, and any other device raises.
 
+S2 solves a line with a warp: the line is cut into 32 segments, one a
+lane, and solved by the partition method (:func:`_thomas_partitioned_plain`
+is its twin, operation for operation); :func:`_thomas_plain`, the exact
+sequential Thomas of the JAX scans, stays as the yardstick of its
+accuracy.
+
 A stack of frames is solved together: the frame axis is written out, where
 the JAX package vmaps over it. Entry points take tensors (run on their
 device) or arrays (run on ``device``, default ``"cuda"``; a missing card
@@ -38,12 +44,17 @@ launches = 0
 # Keeps zero-confidence lines non-singular (wls._fgs's eps).
 EPS = 1e-5
 
+# Shared memory a block may use on the H100 (227 KB): a warp's line of
+# conf, u and w must fit.
+SMEM_MAX = 232_448
+
 
 # -- the line solve: plain twin ---------------------------------------------
 
 def _thomas_plain(d, lo, up, rhs):
-    """Tridiagonal solves along the last axis (the twin of S2, and of the
-    JAX package's ``_thomas_rows``).
+    """Tridiagonal solves along the last axis: the JAX package's
+    ``_thomas_rows``, exact and sequential (the yardstick of
+    :func:`_thomas_partitioned_plain`'s accuracy).
 
     d, rhs : (..., L) diagonals and right-hand sides; lo, up : (..., L-1)
     sub- and super-diagonals. One step a line position, every line at
@@ -74,31 +85,174 @@ def _thomas_plain(d, lo, up, rhs):
     return out
 
 
+# Segments a line: the lanes of the warp that solves it.
+LANES = 32
+
+
+def _segment(L):
+    """Positions a segment of a line of L: ceil(L / 32), made odd so that
+    the 32 lanes reading position ``lane * m + i`` of a line in shared
+    memory hit 32 different banks."""
+    m = -(-L // LANES)
+    return m if m % 2 else m + 1
+
+
+def _thomas_partitioned_plain(d, lo, up, rhs):
+    """Tridiagonal solves along the last axis by the partition method, the
+    twin of the S2 kernel: every operation in the kernel's order, each
+    rounded on its own (no fused multiply-add), so the two agree bit for
+    bit.
+
+    d, rhs : (..., L); lo, up : (..., L-1), as :func:`_thomas_plain`. The
+    line is padded to 32 segments of m = :func:`_segment` (L) positions
+    (identity rows: d 1, no coupling, rhs 0). In segment s the first m-1
+    positions are its interior and the last, b, its separator S_s.
+
+    1. Each segment eliminates its interior top down, as Thomas does, with
+       three right-hand sides: its rhs (y), the coupling lo_a to the
+       separator on its left (v) and up_{b-1} to its own (w, whose
+       forward values are the c' themselves). Then interior position i is
+       ``y_i - v_i S_{s-1} - w_i S_s``.
+    2. A back substitution of the three gives their values at the first
+       interior position; the last one's are the forward values.
+    3. The separator rows, with the interior neighbours put in, form a
+       tridiagonal system of 32 unknowns (one a lane); parallel cyclic
+       reduction solves it in 5 steps of strides 1, 2, 4, 8, 16 (out of
+       range: the identity row).
+    4. Each segment fills its interior by a back substitution from its
+       separator and the one on its left.
+
+    The error against the exact solution is that of the sequential Thomas
+    (the tests hold both to the JAX scans)."""
+    L = d.shape[-1]
+    m = _segment(L)
+    P = LANES * m
+    batch = d.shape[:-1]
+
+    def zeros(n):
+        return d.new_zeros(batch + (n,))
+
+    def seg(t):
+        return t.reshape(batch + (LANES, m))
+
+    D = seg(torch.cat([d, d.new_ones(batch + (P - L,))], -1))
+    LO = seg(torch.cat([zeros(1), lo, zeros(P - L)], -1))
+    UP = seg(torch.cat([up, zeros(P - L + 1)], -1))
+    R = seg(torch.cat([rhs, zeros(P - L)], -1))
+    zero = zeros(LANES)
+    n = m - 1
+    # 1. Forward elimination of the interiors (c', and y', v' of two of
+    # the right-hand sides).
+    cs, ys, vs = [], [], []
+    for i in range(n):
+        if i == 0:
+            den, yn, vn = D[..., 0], R[..., 0], LO[..., 0]
+        else:
+            den = D[..., i] - LO[..., i] * cs[-1]
+            yn = R[..., i] - LO[..., i] * ys[-1]
+            vn = -(LO[..., i] * vs[-1])
+        cs.append(UP[..., i] / den)
+        ys.append(yn / den)
+        vs.append(vn / den)
+    # 2. (y, v, w) at the last (E) and the first (F) interior position;
+    # with no interior, the neighbours of a separator are separators.
+    if n:
+        yE, vE, wE = ys[-1], vs[-1], cs[-1]
+        yF, vF, wF = yE, vE, wE
+        for i in range(n - 2, -1, -1):
+            yF = ys[i] - cs[i] * yF
+            vF = vs[i] - cs[i] * vF
+            wF = -(cs[i] * wF)
+    else:
+        yE, vE, wE = zero, zero - 1, zero
+        yF, vF, wF = zero, zero, zero - 1
+
+    def from_next(t):
+        return torch.cat([t[..., 1:], zero[..., :1]], -1)
+
+    # 3. The separators' system, then PCR.
+    yF1, vF1, wF1 = from_next(yF), from_next(vF), from_next(wF)
+    lob, upb = LO[..., m - 1], UP[..., m - 1]
+    A = -(lob * vE)
+    B = (D[..., m - 1] - lob * wE) - upb * vF1
+    C = -(upb * wF1)
+    Dv = (R[..., m - 1] - lob * yE) - upb * yF1
+    one = zero + 1
+    for delta in (1, 2, 4, 8, 16):
+        def left(t, fill):
+            return torch.cat([fill[..., :delta], t[..., :-delta]], -1)
+
+        def right(t, fill):
+            return torch.cat([t[..., delta:], fill[..., :delta]], -1)
+
+        Am, Bm, Cm, Dm = (left(A, zero), left(B, one), left(C, zero),
+                          left(Dv, zero))
+        Ap, Bp, Cp, Dp = (right(A, zero), right(B, one), right(C, zero),
+                          right(Dv, zero))
+        k1 = A / Bm
+        k2 = C / Bp
+        A, B, C, Dv = (-(Am * k1), (B - Cm * k1) - Ap * k2, -(Cp * k2),
+                       (Dv - Dm * k1) - Dp * k2)
+    S = Dv / B
+    # 4. The fill.
+    S_left = torch.cat([zero[..., :1], S[..., :-1]], -1)
+    xs = [None] * m
+    xs[m - 1] = S
+    if n:
+        x = (ys[n - 1] - vs[n - 1] * S_left) - cs[n - 1] * S
+        xs[n - 1] = x
+        for i in range(n - 2, -1, -1):
+            x = (ys[i] - vs[i] * S_left) - cs[i] * x
+            xs[i] = x
+    return torch.stack(xs, -1).reshape(batch + (P,))[..., :L].contiguous()
+
+
 def _solve_plain(conf, w, u, lam_t, along_y):
     """One WLS line solve of a (B, H, W) stack, ``(C + lam_t L) x = C u +
     eps u`` along x (w: (B, H, W-1)) or along y (w: (B, H-1, W)), built as
     the JAX package's ``_fgs`` builds it and solved by
-    :func:`_thomas_plain`. The twin of the S2 kernel."""
+    :func:`_thomas_partitioned_plain`. The twin of the S2 kernel."""
     if along_y:
         conf, w, u = (t.transpose(-1, -2) for t in (conf, w, u))
     lo = -lam_t * w
     d = conf + EPS + lam_t * (F.pad(w, (1, 0)) + F.pad(w, (0, 1)))
-    x = _thomas_plain(d, lo, lo, conf * u + EPS * u)
+    x = _thomas_partitioned_plain(d, lo, lo, conf * u + EPS * u)
     return x.transpose(-1, -2).contiguous() if along_y else x
 
 
 # -- the line solve: kernel wrapper -----------------------------------------
 
 def _plan(B, H, W, along_y):
-    """What the S2 wrapper asks for a (B, H, W) stack: launches of at most
-    ``frames`` frames (grid y, 65,535 at most), the stack cut into
-    ``pieces`` of them, and a workspace of ``work_bytes`` for c' and r'
-    of one launch's frames (two floats a line position). The kernel works
-    out its own block grid from the shape it is given."""
-    lines, length = (W, H) if along_y else (H, W)
+    """Launch plan of the S2 kernel for a (B, H, W) stack: launches of at
+    most ``frames`` frames (grid y, 65,535 at most), the stack cut into
+    ``pieces`` of them; blocks of ``lines`` warps, a line each, whose
+    conf, u and w arrays take ``stride`` floats a line in ``smem`` bytes
+    of shared memory; segments of ``segment`` positions (one a lane).
+
+    A column solve's block reads row segments of its ``lines`` columns
+    (8: a 32-byte sector a row), a row solve's warp its own row (4 rows a
+    block). ``stride`` is the line rounded up to 32 floats plus
+    32 / ``lines``, so that the threads staging a column block write 32
+    banks. Raises for a line too long for one warp's arrays."""
+    count, length = (W, H) if along_y else (H, W)
+    lines = 8 if along_y else 4
+
+    def stride_of(n):
+        return -(-length // 32) * 32 + 32 // n
+
+    while lines > 1 and 3 * lines * stride_of(lines) * 4 > SMEM_MAX:
+        lines //= 2
+    stride = stride_of(lines)
+    smem = 3 * lines * stride * 4
+    if smem > SMEM_MAX:
+        raise ValueError(
+            f"a line of {length} positions needs {smem} bytes of shared "
+            f"memory for its conf, u and w; a block has {SMEM_MAX} (lines "
+            f"of at most {SMEM_MAX // 12 - 64} positions)")
     frames = min(B, _build.GRID_YZ_MAX)
     return dict(frames=frames, pieces=_build.frame_pieces(B, frames),
-                work_bytes=frames * 2 * length * lines * 4)
+                segment=_segment(length), lines=lines, stride=stride,
+                smem=smem)
 
 
 def _check_stack(conf, w, u, along_y):
@@ -136,8 +290,6 @@ def _solve(conf, w, u, lam_t, along_y):
     plan = _plan(B, H, W, along_y)
     conf, w, u = conf.contiguous(), w.contiguous(), u.contiguous()
     out = torch.empty_like(u)
-    work = torch.empty(plan["work_bytes"] // 4, dtype=torch.float32,
-                       device=conf.device)
     frame = H * W * 4
     wframe = w[0].numel() * 4
     lib = _build.load_library("thomas_kernel")
@@ -146,8 +298,9 @@ def _solve(conf, w, u, lam_t, along_y):
         err = lib.thomas_solve(
             conf.data_ptr() + b0 * frame, w.data_ptr() + b0 * wframe,
             u.data_ptr() + b0 * frame, out.data_ptr() + b0 * frame,
-            work.data_ptr(), b1 - b0, H, W, int(along_y), float(lam_t), EPS,
-            conf.device.index, stream)
+            b1 - b0, H, W, int(along_y), float(lam_t), EPS, plan["segment"],
+            plan["lines"], plan["stride"], plan["smem"], conf.device.index,
+            stream)
         if err != 0:
             raise RuntimeError("WLS line-solve kernel launch failed: "
                                + lib.thomas_error_string(err).decode())

@@ -6,11 +6,15 @@ Builds edited copies of ``simplestereo_tpu_torch/csrc/iir_unwrap_kernel.cu``
 side by side (one nvcc each, all started together) under
 ``build/iir_variants/``. Each copy switches one part of the kernel off, so
 its results are wrong and only its time means anything, or puts back a
-part of the first version (the library's fmod, the smallest ring). Every
-copy is timed on 1280x720 wrapped phases (float32 and float64, tau 0.5;
-CUDA events, median over distinct inputs) in turns with the unchanged
-source. One line per (precision, variant);
-the last line is the card's name and power limit.
+part back as it could be written (the library's fmod, the IEEE division,
+the modulo corrected inline); other variants run the
+unchanged source on another launch plan (chunks of 8 or 32 columns, a
+portable cluster, one warp a CTA). Every variant is timed on 1280x720
+wrapped phases (float32 and float64, tau 0.5; CUDA events, median over
+distinct inputs) in turns with the unchanged source; the edited copies
+also on one 1280-column row (one warp: the transient and 1,280 steps),
+and the unchanged source at 1280x64. One line per (precision, variant); the last line
+is the card's name and power limit.
 
 Run from the root of the checkout. Needs a CUDA card, nvcc and the
 repository checkout; imports no JAX.
@@ -26,33 +30,52 @@ import torch
 
 from .. import _build, unwrapping
 
-TRANSIENT = "  if (threadIdx.x == 0) {\n    T f = phi[0];"
-STEPS = "const int steps = W + 2 * (H - 1);"
-DONE = "if (x >= W) continue;  // this row is done"
-PREFETCH = 'asm volatile("prefetch.global.L1 [%0];" ::"l"(row + x + kLine));'
-STORE = "out[(long long)y * W + x] = u;"
-# name: (source edits, the smallest ring instead of a slot per row)
+TRANSIENT = "  if (rank == 0) {\n    T* p0 = tiles;"
+BANDS = "  const int bands = (H + kLanes - 1) / kLanes;"
+LOAD = ("          cp_async(&tile[r * kTileStride +\n"
+        "                         ((k * kTileCols + c16) & (kCols - 1))],\n"
+        "                   phi + size_t(y0 + r) * W + col);")
+STORE = ("          out[size_t(y0 + r) * W + col] =\n"
+         "              tile[r * kTileStride + ((k * kTileCols + c16) & "
+         "(kCols - 1))];")
+ARITHMETIC = "      T u = pixel(pa, cur, up0, up1, left, right, c, ok);"
+QUICK = "  return O::fma(-q, c.two_pi, a);"
+# name: (source edits, unwrapping._plan keywords)
 VARIANTS = {
-    "base": ([], False),
+    "base": ([], {}),
     "no transient (row 0 copied)": ([(TRANSIENT, (
-        "  for (int x = threadIdx.x; x < W; x += blockDim.x) r0[x] = phi[x];\n"
-        "  if (threadIdx.x == 0 && H < 0) {\n    T f = phi[0];"))], False),
-    "transient alone": ([(STEPS, "const int steps = 0;")], False),
-    "wavefront steps empty": ([(DONE, "if (x >= W || W > 0) continue;")],
-                              False),
-    "library fmod (the first version)": ([(
-        "fmod_pos(O::add(O::sub(phi, u), c.pi), c.two_pi, c.inv_two_pi);",
-        "O::mod(O::add(O::sub(phi, u), c.pi), c.two_pi);")], False),
-    "division by reciprocal": ([
-        ("return __fdiv_rn(a, b);", "return __fmul_rn(a, __frcp_rn(b));"),
-        ("return __ddiv_rn(a, b);", "return __dmul_rn(a, __drcp_rn(b));")],
-        False),
-    "no prefetch": ([(PREFETCH, ";")], False),
-    "phase not loaded": ([("const T p = prow[x];",
-                           "const T p = T(x) * T(0.001);")], False),
-    "no global store": ([(STORE, "if (u == T(12345.678)) " + STORE)],
-                        False),
-    "smallest ring (slot y % ring_rows)": ([], True),
+        "  for (int x = threadIdx.x; rank == 0 && x < W; x += blockDim.x)\n"
+        "    r0[x] = phi[x];\n"
+        "  if (rank == 0 && H < 0) {\n    T* p0 = tiles;"))], {}),
+    "transient alone": ([(BANDS, BANDS.replace(";", " * 0;"))], {}),
+    "arithmetic replaced by two adds": ([(ARITHMETIC, (
+        "      T u = O::add(O::add(pa, up0), O::add(cur, up1));\n"
+        "      ok = true;"))], {}),
+    "library fmod": ([(QUICK, (
+        "  return O::mod(a, c.two_pi);"))], {}),
+    "modulo corrected inline, no exact branch": ([(QUICK, (
+        "  return fmod_fast(a, c.two_pi, c.inv_two_pi);"))], {}),
+    "IEEE division": ([(
+        "  return either(keep(div3(total), both),",
+        "  return either(keep(O::div(total, T(3)), both),")], {}),
+    "division by reciprocal": ([(
+        "  return O::fma(z, O::fma(T(-3), q0, x), q0);", "  return q0;")],
+        {}),
+    "phase tiles not loaded (the I/O warp)": ([(LOAD, "          ;")], {}),
+    "no global store (the I/O warp)": ([(STORE, "          ;")], {}),
+    "no shuffle (lane i reads its own row)": ([(
+        "__shfl_up_sync(kFull, cur, 1)", "cur")], {}),
+    "no exact path (never taken)": ([(
+        "      if (__builtin_expect(!ok & active, 0))\n",
+        "      if (c.tau < T(-1))\n")],
+        {}),
+    "launch bounds of 1,024 threads (64 registers)": ([(
+        "__launch_bounds__(2 * kMaxWarps * kLanes)",
+        "__launch_bounds__(1024)")], {}),
+    "chunks of 8 columns": ([], dict(chunk=8, slots=32)),
+    "chunks of 32 columns": ([], dict(chunk=32, slots=8)),
+    "a portable cluster (8 CTAs)": ([], dict(cluster=8)),
+    "one warp a CTA (16 CTAs, bands wrap)": ([], dict(warps_per_cta=1)),
 }
 
 
@@ -86,19 +109,17 @@ def build(root):
     return libs
 
 
-def launcher(lib, small_ring):
-    """Run a copy of the kernel with the wrapper's plan, or with the
-    smallest ring that keeps live rows apart."""
+def launcher(lib, plan_kw):
+    """Run a copy of the kernel with the wrapper's plan, or one made with
+    other keywords."""
     def run(x):
         H, W = x.shape
-        plan = unwrapping._plan(
-            H, W, x.element_size(),
-            ring_rows=min(H, W // 2 + 2) if small_ring else None)
+        plan = unwrapping._plan(H, W, x.element_size(), **plan_kw)
         out = torch.empty_like(x)
-        work = torch.empty(W, dtype=x.dtype, device=x.device)
-        err = lib.iir_unwrap(x.data_ptr(), out.data_ptr(), work.data_ptr(),
-                             H, W, 0.5, int(x.dtype == torch.float64),
-                             plan["threads"], plan["ring_rows"], plan["smem"],
+        err = lib.iir_unwrap(x.data_ptr(), out.data_ptr(), H, W, 0.5,
+                             int(x.dtype == torch.float64),
+                             plan["warps_per_cta"], plan["ctas"],
+                             plan["chunk"], plan["slots"], plan["smem"],
                              x.device.index,
                              torch.cuda.current_stream(x.device).cuda_stream)
         if err:
@@ -142,10 +163,12 @@ def main():
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip()
     libs = build(_build.BUILD_DIR.parent / "iir_variants")
-    h, w = 720, 1280
-    steps = w + 2 * (h - 1) + 2 * (w - 1)
-    base = launcher(libs["base"], False)
-    for dtype in (np.float32, np.float64):
+    w = 1280
+    base = launcher(libs["base"], {})
+    for h, dtype in ((720, np.float32), (720, np.float64), (1, np.float32)):
+        # the first version's chain (the transient and one wavefront), the
+        # yardstick of a step's time across versions
+        steps = w + 2 * (h - 1) + 2 * (w - 1)
         ins = [torch.tensor(wrapped_phase(h, w, dtype, seed=i), device=dev)
                for i in range(6)]
         if not torch.equal(base(ins[0]),
@@ -154,12 +177,26 @@ def main():
                                  "differs from the twin")
         runs = ["base"]
         for name in VARIANTS:
-            if name != "base":
+            if name != "base" and (h > 1 or not VARIANTS[name][1]):
                 runs += [name, "base"]
         for name in runs:
             ms = cuda_ms(launcher(libs[name], VARIANTS[name][1]), ins)
             print(f"{w}x{h} {dtype.__name__} {name}: {ms:.3f} ms "
                   f"({ms * 1e6 / steps:.0f} ns a step of {steps})",
+                  flush=True)
+        if h == 1:
+            continue
+        # The unchanged source at H = 64: a tenth of the live rows a step.
+        # A step bound by issue gets faster with fewer rows; one bound by
+        # its latency does not.
+        h64 = 64
+        steps64 = w + 2 * (h64 - 1) + 2 * (w - 1)
+        ins64 = [torch.tensor(wrapped_phase(h64, w, dtype, seed=i),
+                              device=dev) for i in range(6)]
+        for name in ("base", "transient alone"):
+            ms = cuda_ms(launcher(libs[name], {}), ins64)
+            print(f"{w}x{h64} {dtype.__name__} {name}: {ms:.3f} ms "
+                  f"({ms * 1e6 / steps64:.0f} ns a step of {steps64})",
                   flush=True)
     print(card)
 

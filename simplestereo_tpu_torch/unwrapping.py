@@ -27,8 +27,10 @@ the row above by the carry, so (y-1, x-1) is not a neighbour.
 
 Pixel (y, x) then needs only (y, x-1) and (y-1, x..x+1), so all pixels
 with x + 2y = t can be computed together at step t: W + 2(H-1) steps
-instead of H*W. The twin and the kernel both walk that wavefront, with
-the same operations in the same order, so on the card the two agree bit
+instead of H*W. The twin walks that wavefront a step at a time; the
+kernel runs bands of 32 rows on warps, each band a wavefront of its own a
+few steps behind the band above (:func:`_plan`). Every pixel sees the same
+operations in the same order either way, so on the card the two agree bit
 for bit.
 """
 
@@ -44,9 +46,19 @@ from ._device import resolve_device
 # twin do not count): lets a caller prove a run went through the kernel.
 launches = 0
 
-# Shared memory a block may use on the H100 (227 KB): the kernel's ring of
-# each live row's last three estimates must fit.
+# Shared memory a block may use on the H100 (227 KB).
 SMEM_MAX = 232_448
+# CTAs of a cluster the H100 schedules together (16 with the non-portable
+# size allowed; 8 portable).
+CLUSTER_MAX = 16
+# Rows a band: the lanes of the warp that runs it.
+LANES = 32
+# Compute warps a CTA at most (each with an I/O warp: the kernel's launch
+# bounds).
+MAX_WARPS = 8
+# A warp's ring of phase tiles: 8 tiles of 16 columns, a row padded by 1.
+TILES = 8
+TILE_STRIDE = TILES * 16 + 1
 
 
 def _float_tensor(x, device):
@@ -209,32 +221,75 @@ def _iir_unwrap_plain(phase, tau):
 
 # -- the IIR recursion: kernel wrapper ------------------------------------
 
-def _plan(H, W, itemsize, ring_rows=None):
-    """Launch plan of the S1 kernel: one block of ``threads`` (each owns
-    rows threads apart) and a ring of ``ring_rows`` rows x 3 estimates in
-    ``smem`` bytes of shared memory.
+def _align16(n):
+    return -(-n // 16) * 16
 
-    The ring holds every row (a slot per row, no modulo) where that fits;
-    otherwise row y takes slot y % ring_rows. Row y computes at steps
-    [2y, 2y+W-1] and is read by row y+1 until step 2y+W+1, so rows at most
-    (W+1)/2 apart are live together: W//2 + 2 ring rows never hand one
-    row's slot to another while it is live. ``ring_rows`` forces a size
-    (at least that minimum), so the modulo path can be tested on any
-    shape."""
-    need = min(H, W // 2 + 2)
-    if ring_rows is None:
-        ring_rows = H if H * 3 * itemsize <= SMEM_MAX else need
-    if ring_rows < need:
-        raise ValueError(f"a ring of {ring_rows} rows is too small for "
-                         f"{H}x{W}: {need} rows are live together")
-    threads = min(1024, max(32, -(-H // 32) * 32))
-    smem = ring_rows * 3 * itemsize
+
+def _smem_bytes(W, itemsize, wpc, chunk, slots):
+    """Shared memory a CTA of the S1 kernel takes (its ``layout``): a
+    barrier (8 bytes) a chunk slot and two a tile slot (loaded, passed),
+    a read count (4) a warp, each warp's ring of ``slots`` x ``chunk``
+    estimates, row 0's transient r0 (W), and the warps' phase tiles (32
+    rows x TILE_STRIDE), which CTA 0 first lends to row 0's phase and the
+    transient's sums (2W)."""
+    n = _align16(wpc * slots * 8)
+    n = _align16(n + wpc * 2 * TILES * 8)
+    n = _align16(n + wpc * 4)
+    n = _align16(n + wpc * slots * chunk * itemsize)
+    n = _align16(n + W * itemsize)
+    return _align16(n + max(wpc * LANES * TILE_STRIDE * itemsize,
+                            2 * W * itemsize))
+
+
+def _plan(H, W, itemsize, cluster=CLUSTER_MAX, warps_per_cta=MAX_WARPS,
+          chunk=16, slots=16):
+    """Launch plan of the S1 kernel: one cluster of ``ctas`` CTAs of
+    ``warps_per_cta`` compute warps (``warps`` in all; each CTA also has
+    as many I/O warps, which stage the compute warps' phase tiles), rings
+    of ``slots`` chunks of ``chunk`` columns (``ring`` columns; both
+    powers of two), ``smem`` bytes of shared memory a CTA.
+
+    A warp runs a band of 32 rows; warp w takes bands w, w + warps, ....
+    With up to ``cluster`` CTAs and ``warps_per_cta`` warps each, the plan
+    gives every band a warp of its own where it can, on as many SMs as it
+    can (two bands a CTA at 720p: 12 CTAs), at least two CTAs wherever
+    there are two bands (a band hands its last row to a warp of another
+    CTA). Where shared memory holds fewer warps, bands wrap round, and
+    then a ring holds a whole row: a band may have to write all of its
+    last row before the warp below is free to read it. The arguments
+    force a smaller plan (the tests' and ``chip_smoke.py``'s other rings).
+    Raises for a shape whose CTA needs more shared memory than a block
+    has."""
+    if not 2 <= cluster <= CLUSTER_MAX:
+        raise ValueError(f"cluster must be in [2, {CLUSTER_MAX}], got "
+                         f"{cluster}")
+    if chunk < 2 or chunk & (chunk - 1) or slots < 2 or slots & (slots - 1):
+        raise ValueError(f"chunk and slots must be powers of two >= 2, got "
+                         f"{chunk}, {slots}")
+    bands = -(-H // LANES)
+    row_slots = 1 << (-(-W // chunk) - 1).bit_length()
+
+    def fit(wpc):
+        ctas = 1 if bands == 1 else min(cluster, max(2, -(-bands // wpc)))
+        n = max(slots, row_slots) if bands > ctas * wpc else slots
+        return ctas, n, _smem_bytes(W, itemsize, wpc, chunk, n)
+
+    wpc = 1 if bands == 1 else min(warps_per_cta, -(-bands // cluster),
+                                   MAX_WARPS)
+    ctas, n, smem = fit(wpc)
+    while smem > SMEM_MAX and wpc > 1:
+        wpc -= 1
+        ctas, n, smem = fit(wpc)
     if smem > SMEM_MAX:
-        raise ValueError(f"a {H}x{W} phase map needs a {smem}-byte ring of "
-                         f"row estimates; one block has {SMEM_MAX} bytes of "
-                         "shared memory (rows of at most "
-                         f"{2 * (SMEM_MAX // (3 * itemsize) - 2)} pixels)")
-    return dict(threads=threads, ring_rows=ring_rows, smem=smem)
+        most = (SMEM_MAX - _smem_bytes(0, itemsize, 1, chunk, slots)
+                + LANES * TILE_STRIDE * itemsize) // (3 * itemsize)
+        raise ValueError(
+            f"a {H}x{W} phase map needs {smem} bytes of shared memory a "
+            f"CTA (row 0's transient takes 3W values); one block has "
+            f"{SMEM_MAX} (rows of at most about {most} pixels)")
+    return dict(warps=ctas * wpc, warps_per_cta=wpc, ctas=ctas,
+                cluster=ctas, chunk=chunk, slots=n, ring=chunk * n,
+                smem=smem)
 
 
 def _iir_unwrap(phase, tau, plan=None):
@@ -256,12 +311,11 @@ def _iir_unwrap(phase, tau, plan=None):
         plan = _plan(H, W, phase.element_size())
     phase = phase.contiguous()
     out = torch.empty_like(phase)
-    work = torch.empty(W, dtype=phase.dtype, device=phase.device)
     lib = _build.load_library("iir_unwrap_kernel")
-    err = lib.iir_unwrap(phase.data_ptr(), out.data_ptr(), work.data_ptr(),
-                         H, W, float(tau), int(phase.dtype == torch.float64),
-                         plan["threads"], plan["ring_rows"], plan["smem"],
-                         phase.device.index,
+    err = lib.iir_unwrap(phase.data_ptr(), out.data_ptr(), H, W, float(tau),
+                         int(phase.dtype == torch.float64),
+                         plan["warps_per_cta"], plan["ctas"], plan["chunk"],
+                         plan["slots"], plan["smem"], phase.device.index,
                          torch.cuda.current_stream(phase.device).cuda_stream)
     if err != 0:
         raise RuntimeError("IIR unwrap kernel launch failed: "

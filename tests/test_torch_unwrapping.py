@@ -14,6 +14,8 @@
   rounds twice (at tau 0 and 1 both are exact and the maps are equal).
 """
 
+import pathlib
+
 import numpy as np
 import pytest
 import torch
@@ -134,24 +136,69 @@ def test_iir_errors():
                                           (1100, 64, 4), (1, 40, 8),
                                           (40, 1, 4)])
 def test_plan(H, W, itemsize):
-    """The kernel's launch plan: threads a multiple of 32 up to 1,024, and
-    a ring wide enough that two rows sharing a slot are never live
-    together (row y is live over steps [2y, 2y + W + 1])."""
+    """The kernel's launch plan: one cluster of CTAs of whole warps, a
+    warp a band of 32 rows where the cluster's CTAs hold one each, at
+    least two CTAs where there are two bands (a band's last row goes to a
+    warp of another CTA), rings of a power of two of chunks of at least 2
+    columns, and the shared memory of the kernel's layout within a
+    block's."""
     plan = unw._plan(H, W, itemsize)
-    assert plan["threads"] % 32 == 0 and 32 <= plan["threads"] <= 1024
-    assert plan["ring_rows"] == H  # a slot per row where that fits
-    assert plan["smem"] == H * 3 * itemsize <= unw.SMEM_MAX
-    need = min(H, W // 2 + 2)
-    small = unw._plan(H, W, itemsize, ring_rows=need)
-    assert small["smem"] == need * 3 * itemsize
-    assert need == H or 2 * need > W + 1
-    if need > 1:
-        with pytest.raises(ValueError, match="live together"):
-            unw._plan(H, W, itemsize, ring_rows=need - 1)
-    big = unw._plan(30_000, 64, 8)  # too many rows for a slot each
-    assert big["ring_rows"] == 34 and big["threads"] == 1024
+    bands = -(-H // 32)
+    wpc, ctas = plan["warps_per_cta"], plan["ctas"]
+    assert plan["warps"] == ctas * wpc and plan["cluster"] == ctas
+    assert 1 <= ctas <= unw.CLUSTER_MAX and 1 <= wpc <= unw.MAX_WARPS
+    assert ctas >= 2 or bands == 1
+    assert plan["warps"] >= bands  # no band waits for a warp here
+    assert plan["warps"] - wpc < bands  # and no CTA is idle
+    chunk, slots = plan["chunk"], plan["slots"]
+    assert chunk >= 2 and slots >= 2 and slots & (slots - 1) == 0
+    assert plan["ring"] == chunk * slots
+    assert plan["smem"] == unw._smem_bytes(W, itemsize, wpc, chunk, slots)
+    assert plan["smem"] <= unw.SMEM_MAX
+    # Forced smaller plans: the smallest ring; bands wrap round two warps
+    # on two CTAs, and then a ring holds a row.
+    tiny = unw._plan(H, W, itemsize, chunk=2, slots=2)
+    assert tiny["ring"] == 4 and tiny["warps"] >= bands
+    small = unw._plan(H, W, itemsize, cluster=2, warps_per_cta=1, chunk=2,
+                      slots=2)
+    assert small["warps"] == (1 if bands == 1 else 2)
+    if bands > 2:
+        assert small["ring"] >= W and small["slots"] & (small["slots"]
+                                                        - 1) == 0
+    else:
+        assert small["ring"] == 4
+    with pytest.raises(ValueError, match="powers of two"):
+        unw._plan(H, W, itemsize, slots=3)
+    with pytest.raises(ValueError, match="powers of two"):
+        unw._plan(H, W, itemsize, chunk=12)
+    with pytest.raises(ValueError, match="cluster"):
+        unw._plan(H, W, itemsize, cluster=17)
+    # Many bands: 16 CTAs of 8 warps (6 where shared memory holds no more);
+    # bands wrap round.
+    big = unw._plan(30_000, 64, 8)
+    assert big["ctas"] == 16 and big["warps"] < -(-30_000 // 32)
+    assert big["smem"] <= unw.SMEM_MAX
     with pytest.raises(ValueError, match="shared memory"):
-        unw._plan(20_000, 20_000, 8)
+        unw._plan(20, 20_000, 8)
+
+
+def test_plan_matches_the_kernel_source():
+    """The plan's constants are the kernel's: 32 rows a band, a ring of 8
+    tiles of 16 columns a warp, a row padded by one, clusters of at most
+    16 CTAs of at most 8 warps; the binding has the C signature's 13
+    arguments."""
+    import re
+    from simplestereo_tpu_torch import _build
+    src = (pathlib.Path(_build.__file__).parent / "csrc"
+           / "iir_unwrap_kernel.cu").read_text()
+    const = {k: int(v) for k, v in
+             re.findall(r"constexpr int (k\w+) = (\d+);", src)}
+    assert const["kLanes"] == unw.LANES == 32
+    assert const["kTiles"] * const["kTileCols"] + 1 == unw.TILE_STRIDE
+    assert "ctas > 16" in src and unw.CLUSTER_MAX == 16
+    assert const["kMaxWarps"] == unw.MAX_WARPS
+    argtypes, _ = _build._SIGNATURES["iir_unwrap_kernel"]["iir_unwrap"]
+    assert len(argtypes) == 13
 
 
 def _raster(phase, tau):

@@ -23,8 +23,20 @@ Tolerances, relative to the output's scale (atol = tol * max|ref|):
   (the budget of tests/test_torch_asw.py) and its WLS pass is held to
   JAX's WLS of the port's map; the same ValueErrors.
 
-The kernel's launch plan (a warp of lines a block, the grid, the frame
-pieces, the workspace) is held to the H100's limits and to the source.
+The S2 kernel solves a line by the partition method (32 segments, one a
+lane, then a reduction of the 32 separators); its twin
+``_thomas_partitioned_plain`` is the CPU path of ``_solve``, so every
+filter test above holds it to JAX. It is also held to the scans and to the
+exact sequential ``_thomas_plain`` on its own, at SOLVE_TOL, on lines of
+1, 2, 31, 33, 40 and 1280 positions at lambda 4 and 128: against a
+float64 solve it errs as much as the sequential Thomas does (both reach
+~1.5e-5 of the scale only on lines with 30-50% zero-confidence positions
+at lambda 128, where JAX's own scans err as much). Whole filters through
+the partitioned twin are held to the same filters through the sequential
+one at SOLVE_TOL and ZERO_CONF_TOL.
+
+The kernel's launch plan (a warp a line, blocks of lines, shared memory,
+the grid, the frame pieces) is held to the H100's limits and to the source.
 """
 
 import pathlib
@@ -96,6 +108,80 @@ def test_thomas_plain_matches_jax(shape, conf_zero):
                              jnp.asarray(lo), jnp.asarray(rhs))
     got = wls._thomas_plain(*(torch.tensor(a) for a in (d, lo, lo, rhs)))
     _close(got, want, SOLVE_TOL)
+
+
+@pytest.mark.parametrize("shape", [(3, 1), (5, 2), (8, 31), (8, 33),
+                                   (8, 40), (4, 1280), (40, 56)])
+@pytest.mark.parametrize("conf_zero,lam", [(0.0, 4.0), (0.3, 4.0),
+                                           (0.0, 128.0), (0.05, 128.0)])
+def test_thomas_partitioned_plain_matches_jax(shape, conf_zero, lam):
+    """The partition method (a line cut into 32 segments: L = 1, 2 and 31
+    leave segments of one position, 33 and 40 padded ones, 1280 41) against
+    the JAX scans and the exact sequential twin."""
+    rng = np.random.default_rng(3)
+    d, lo, rhs = _weights(rng, *shape, lam=lam, conf_zero=conf_zero)
+    want = jwls._thomas_rows(jnp.asarray(d), jnp.asarray(lo),
+                             jnp.asarray(lo), jnp.asarray(rhs))
+    args = [torch.tensor(a) for a in (d, lo, lo, rhs)]
+    got = wls._thomas_partitioned_plain(*args)
+    _close(got, want, SOLVE_TOL)
+    _close(got, wls._thomas_plain(*args).numpy(), SOLVE_TOL)
+
+
+def test_segments_are_odd_and_cover_the_line():
+    for L in (1, 2, 31, 32, 33, 40, 64, 65, 720, 1280, 16_384):
+        m = wls._segment(L)
+        assert m % 2 == 1 and wls.LANES * m >= L
+        assert wls.LANES * (m - 2) < L or m == 1
+
+
+def _sequential_solve(conf, w, u, lam_t, along_y):
+    """_solve_plain with the exact sequential Thomas."""
+    if along_y:
+        conf, w, u = (t.transpose(-1, -2) for t in (conf, w, u))
+    lo = -lam_t * w
+    d = conf + wls.EPS + lam_t * (torch.nn.functional.pad(w, (1, 0))
+                                  + torch.nn.functional.pad(w, (0, 1)))
+    x = wls._thomas_plain(d, lo, lo, conf * u + wls.EPS * u)
+    return x.transpose(-1, -2).contiguous() if along_y else x
+
+
+@pytest.mark.parametrize("H,W,lam,sigma,invalid_share", [
+    (40, 56, 4.0, 2.0, 0.0), (72, 96, 128.0, 8.0, 0.0),
+    (72, 96, 2.0, 8.0, 0.025)])
+def test_fgs_partitioned_matches_sequential(monkeypatch, H, W, lam, sigma,
+                                            invalid_share):
+    """The whole smoother through the kernel's twin against the same
+    smoother through the exact sequential Thomas."""
+    rng = np.random.default_rng(4)
+    d = rng.normal(20, 5, (1, H, W)).astype(np.float32)
+    conf = (rng.random((1, H, W)) >= invalid_share).astype(np.float32)
+    g = rng.integers(0, 256, (1, H, W, 3)).astype(np.float32)
+    wx, wy = wls._edge_weights(torch.tensor(g), sigma)
+    args = (torch.tensor(d * conf), torch.tensor(conf), wx, wy,
+            float(np.float32(lam)), 3)
+    got = wls._fgs(*args)
+    monkeypatch.setattr(wls, "_solve", _sequential_solve)
+    _close(got, wls._fgs(*args).numpy(), SOLVE_TOL)
+
+
+@pytest.mark.parametrize("lam,sigma,share,block", [
+    (2.0, 8.0, 0.025, False), (128.0, 2.0, 0.025, True),
+    (2.0, 0.5, 0.3, True)])
+def test_zero_confidence_partitioned_matches_sequential(monkeypatch, lam,
+                                                        sigma, share, block):
+    rng = np.random.default_rng(0)
+    H, W = 72, 96
+    d = (rng.normal(20, 5, (H, W)) * 16).astype(np.float32)
+    d[rng.random((H, W)) < share] = -16
+    if block:
+        d[20:40, 30:70] = -16
+    g = rng.integers(0, 256, (H, W, 3)).astype(np.float32)
+    kw = dict(lambda_=lam, sigma_color=sigma, invalid=-16,
+              disp_scale=1 / 16.0, device="cpu")
+    got = wls.wls_filter_disparity(d, g, **kw)
+    monkeypatch.setattr(wls, "_solve", _sequential_solve)
+    _close(got, wls.wls_filter_disparity(d, g, **kw), ZERO_CONF_TOL)
 
 
 @pytest.mark.parametrize("H,W,lam,sigma,invalid_share", [
@@ -218,35 +304,50 @@ def test_numpy_input_needs_a_card_by_default():
 # -- the S2 launch plan --------------------------------------------------------
 
 def test_plan_matches_the_kernel_source():
-    """The kernel's block is 32 lines, one warp, and its static shared
-    memory (three stages of conf, w and u tiles) stays under the 48 KB a
-    block may take without opting in; the binding has the C signature's
-    13 arguments."""
+    """The kernel gives a line a warp of 32 segments (the twin's LANES),
+    takes its shared memory dynamically (one block's 227 KB at most) and
+    keeps no workspace in device memory; the binding has the C signature's
+    16 arguments."""
     src = (pathlib.Path(_build.__file__).parent / "csrc"
            / "thomas_kernel.cu").read_text()
     const = {k: int(v) for k, v in
              re.findall(r"constexpr int (k\w+) = (\d+);", src)}
-    assert const["kLines"] == 32
-    tile = const["kChunk"] * (const["kLines"] + 1)
-    assert 3 * const["kStages"] * tile * 4 <= 48 * 1024
+    assert const["kLanes"] == 32 == wls.LANES
+    assert const["kMaxLines"] == 8
+    assert "extern __shared__" in src
+    assert not re.search(r"\bwork\b", src)
+    assert wls.SMEM_MAX == 232_448
     assert "thomas_solve" in _build._SIGNATURES["thomas_kernel"]
     argtypes, _ = _build._SIGNATURES["thomas_kernel"]["thomas_solve"]
-    assert len(argtypes) == 13
+    assert len(argtypes) == 16
 
 
 @pytest.mark.parametrize("along_y", [False, True])
 def test_plan_fits_every_shape(along_y):
     for B in (1, 8, 65_535, 70_000):
-        for H, W in ((720, 1280), (1, 1), (1, 47), (33, 1), (33, 47)):
+        for H, W in ((720, 1280), (1, 1), (1, 47), (33, 1), (33, 47),
+                     (1, 16_384), (16_384, 1)):
             plan = wls._plan(B, H, W, along_y)
             frames = plan["frames"]
             assert frames == min(B, 65_535)
             covered = [b for b0, b1 in plan["pieces"] for b in range(b0, b1)]
             assert covered == list(range(B))
             assert all(b1 - b0 <= frames for b0, b1 in plan["pieces"])
-            # c' and r' of every line position of a launch's frames.
-            assert plan["work_bytes"] == frames * 2 * H * W * 4
+            # A warp a line; its conf, u and w in shared memory.
+            L = H if along_y else W
+            lines = plan["lines"]
+            assert 1 <= lines <= 8 and 32 % lines == 0
+            assert plan["segment"] == wls._segment(L)
+            assert plan["stride"] >= L
+            assert plan["stride"] % 32 == (32 // lines) % 32
+            assert plan["smem"] == 3 * lines * plan["stride"] * 4
+            assert plan["smem"] <= wls.SMEM_MAX
+            assert "work_bytes" not in plan
     assert len(wls._plan(70_000, 4, 5, along_y)["pieces"]) == 2
+    assert wls._plan(1, 720, 1280, along_y)["lines"] == (8 if along_y
+                                                          else 4)
+    with pytest.raises(ValueError, match="shared memory"):
+        wls._plan(1, 30_000, 30_000, along_y)
 
 
 def test_cpu_solve_counts_no_launch_and_checks_shapes():
