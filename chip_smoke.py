@@ -2927,15 +2927,24 @@ def distributed_phase(dev, card):
 # Phase 29: the image formats of ``imgio`` on the card's host, which has
 # no Pillow: (a) every committed fixture (tests/golden/torch_imgio/, one
 # small file of each format and variant, written by Pillow or built by
-# tests/image_files.py) decodes to the arrays Pillow gave when it was
-# made; (b) folders of BMP and TIFF frames, written by the port's own
-# imwrite, stream through Capture into StereoASW(**MAIN).computeBatch on
-# K1 (both lossless: the maps must equal those of the frames in memory);
-# (c) host-clock ms to decode one 1280x720 frame in each format.
+# tests/image_files.py, and four 1280x720 files held to digests) decodes
+# to the arrays Pillow gave when it was made, and refuses where Pillow's
+# convert refused; (b) the stream's side-by-side frames as folders of BMP
+# and TIFF (the port's imwrite) and of JPEG-in-TIFF (strips coded by the
+# port's own JPEG encoder, tables in JPEGTables), and as a list of VP8L
+# WebP files (image_files.webp_lossless; the JAX Capture scans folders
+# for .png/.jpg/.jpeg/.bmp/.tif/.tiff only), stream through Capture into
+# StereoASW(**MAIN).computeBatch on K1: the lossless ones' maps must equal
+# those of the frames in memory, JPEG-in-TIFF's those of computeBatch on
+# the same files decoded first; (c) host-clock ms to decode one 1280x720
+# frame in each format.
 FORMAT_SHAPE = (720, 1280)
 FORMAT_SEED = 29
-FORMAT_EXTS = (".bmp", ".tif")
+FORMAT_STREAMS = ("BMP", "TIFF", "JPEG-in-TIFF", "WebP lossless")
 FORMAT_REPS = 6      # decodes timed a format, after one warm decode
+FORMAT_JPEG_Q = 90   # the JPEG-in-TIFF strips' quality
+# CIELab: Pillow converts LAB to RGB through LittleCMS; the port refuses.
+FORMAT_LAB_TO_RGB_REFUSED = ("tif-pillow-LAB", "tif-mm-lab-lzw")
 
 
 def _fixtures():
@@ -2950,8 +2959,16 @@ def _fixtures():
 
 def same_array(a, b, where):
     check(a.dtype == b.dtype and a.shape == b.shape
-          and np.array_equal(a, b), f"{where}: {a.dtype}{a.shape} differs "
-          f"from {b.dtype}{b.shape}")
+          and np.array_equal(a, b, equal_nan=a.dtype.kind == "f"),
+          f"{where}: {a.dtype}{a.shape} differs from {b.dtype}{b.shape}")
+
+
+def refuses(fn, where):
+    try:
+        fn()
+    except ValueError:
+        return
+    check(False, f"{where}: read where Pillow's convert refuses")
 
 
 def fixtures_part():
@@ -2965,11 +2982,19 @@ def fixtures_part():
         path = str(folder / fname)
         samples = stored[f"{name}/samples"]
         same_array(imgio.read_samples(path), samples, f"fixture {name}")
-        same_array(imgio.imread(path, grayscale=True),
-                   stored.get(f"{name}/L", samples), f"fixture {name} gray")
-        same_array(imgio.imread(path),
-                   stored.get(f"{name}/RGB", samples)[:, :, ::-1],
-                   f"fixture {name} colour")
+        no = meta["refuses"].get(name, [])
+        if "L" in no:
+            refuses(lambda: imgio.imread(path, True), f"fixture {name} gray")
+        else:
+            same_array(imgio.imread(path, grayscale=True),
+                       stored.get(f"{name}/L", samples),
+                       f"fixture {name} gray")
+        if "RGB" in no or name in FORMAT_LAB_TO_RGB_REFUSED:
+            refuses(lambda: imgio.imread(path), f"fixture {name} colour")
+        else:
+            same_array(imgio.imread(path),
+                       stored.get(f"{name}/RGB", samples)[:, :, ::-1],
+                       f"fixture {name} colour")
     for name, rec in meta["large"].items():
         path = str(folder / rec["file"])
         check(image_files.digest(imgio.read_samples(path)) == rec["samples"]
@@ -2979,18 +3004,34 @@ def fixtures_part():
     return len(meta["files"]) + len(meta["large"]), kinds, meta["pillow"]
 
 
+def jpeg_tiff(rgb):
+    """JPEG-in-TIFF bytes of (h, w, 3) uint8 RGB: YCbCr 4:2:0, strips of 16
+    rows, each coded by the port's JPEG encoder, the shared tables in
+    JPEGTables (tests/image_files.py's TIFF writer)."""
+    import image_files
+    from simplestereo_tpu_torch import native
+    enc = lambda blk: native.jpeg_encode(blk.astype(np.uint8), FORMAT_JPEG_Q,
+                                         bgr=False)
+    return image_files.tiff(rgb, 8, 6, comp=7, encode=enc, rows_per_strip=16,
+                            subsampling=(2, 2), jpeg_tables=True)
+
+
 def decode_files(root, frame):
     """{format: (path, what its decode must equal)}: one 1280x720 frame
     in each timed format, under root. The port writes 8-bit PNG, BMP and
-    raw TIFF; tests/image_files.py builds the rest (16-bit gray, palette
-    and Adam7 PNG; LZW and Deflate TIFF with the predictor, in strips of
-    17 rows as libtiff writes them); the progressive JPEG is the
-    committed fixture (Pillow's), held to its digest."""
+    raw TIFF; tests/image_files.py builds 16-bit gray, palette and Adam7
+    PNG, LZW and Deflate TIFF with the predictor (strips of 17 rows, as
+    libtiff writes them), 16-bit PGM, PFM, float TIFF, JPEG-in-TIFF, GIF
+    and VP8L WebP; the progressive JPEG, lossy WebP, CMYK JPEG and CCITT
+    Group 4 TIFF are the committed fixtures (Pillow's), held to digests.
+    The JPEG-in-TIFF frame must equal its strips, each coded and decoded
+    as a JPEG file of its own."""
     from simplestereo_tpu_torch import imgio
     folder, meta = _fixtures()
     import image_files
     rgb = frame[:, :, ::-1]
     g16 = frame[:, :, 1].astype(np.uint16) * 257 + frame[:, :, 0]
+    f32 = (frame[:, :, 0].astype(np.float32) - 100.5) / 7
     pal = np.random.default_rng(FORMAT_SEED).integers(0, 256, (256, 3))
     out = {}
 
@@ -3014,15 +3055,34 @@ def decode_files(root, frame):
         rgb, 8, 2, comp=5, predictor=2, rows_per_strip=17), rgb)
     put("TIFF Deflate predictor", ".tif", image_files.tiff(
         rgb, 8, 2, comp=8, predictor=2, rows_per_strip=17), rgb)
-    rec = meta["large"]["jpg-progressive-1280x720"]
-    out["JPEG progressive"] = (str(folder / rec["file"]), rec["samples"])
+    put("PGM 16-bit", ".pgm", image_files.pnm(b"P5", g16, 65535),
+        g16.astype(np.int32))
+    put("PFM", ".pfm", image_files.pnm(b"Pf", f32, scale=-1.0), f32)
+    put("TIFF float32", ".tif", image_files.tiff(
+        f32[:, :, None], 32, 1, sample_format=3, rows_per_strip=17), f32)
+    from simplestereo_tpu_torch import native
+    strips = np.concatenate([native.jpeg_decode(native.jpeg_encode(
+        rgb[y:y + 16], FORMAT_JPEG_Q, bgr=False), bgr=False)
+        for y in range(0, rgb.shape[0], 16)])
+    put("JPEG-in-TIFF", ".tif", jpeg_tiff(rgb), strips)
+    put("GIF", ".gif", image_files.gif(
+        [(frame[:, :, 0], 0, 0, None, False)], frame.shape[:2], pal),
+        frame[:, :, 0])
+    put("WebP lossless", ".webp", image_files.webp_lossless(rgb), rgb)
+    for name, key in (("JPEG progressive", "jpg-progressive-1280x720"),
+                      ("JPEG CMYK", "jpg-cmyk-1280x720"),
+                      ("CCITT Group 4", "tif-group4-1280x720"),
+                      ("WebP lossy", "webp-lossy-1280x720")):
+        rec = meta["large"][key]
+        out[name] = (str(folder / rec["file"]), rec["samples"])
     return out
 
 
 def formats_phase(dev, card):
-    """Phase 29: fixtures, BMP and TIFF capture folders through K1, and
-    decode times of 1280x720 frames."""
+    """Phase 29: fixtures, BMP, TIFF, JPEG-in-TIFF and WebP captures
+    through K1, and decode times of 1280x720 frames."""
     from simplestereo_tpu_torch import imgio, profiling, utils
+    from simplestereo_tpu_torch.formats import reversed_rgb
     from simplestereo_tpu_torch.passive import StereoASW, asw_cuda
 
     t0 = time.perf_counter()
@@ -3033,33 +3093,68 @@ def formats_phase(dev, card):
     h, w = FORMAT_SHAPE
     root = stream_dir()
     frames, _, shifts = stream_frames(h, w, FORMAT_SEED)
-    index = {f.tobytes(): i for i, f in enumerate(frames)}
-    check(len(index) == len(frames), "phase 29: two stream frames are equal")
+    check(len({f.tobytes() for f in frames}) == len(frames),
+          "phase 29: two stream frames are equal")
     t0 = time.perf_counter()
-    folders = {}
-    for ext in FORMAT_EXTS:
-        folders[ext] = root / ext[1:]
-        folders[ext].mkdir()
+    sources, write_s = {}, {}
+    for kind in FORMAT_STREAMS:
+        t1 = time.perf_counter()
+        folder = root / kind.split()[0].lower()
+        folder.mkdir()
+        paths = []
         for i, f in enumerate(frames):
-            imgio.imwrite(str(folders[ext] / f"{i:03d}{ext}"), f)
-    write_s = time.perf_counter() - t0
+            if kind in ("BMP", "TIFF"):
+                p = folder / f"{i:03d}.{kind.lower()[:3]}"
+                imgio.imwrite(str(p), f)
+            elif kind == "JPEG-in-TIFF":
+                p = folder / f"{i:03d}.tif"
+                p.write_bytes(jpeg_tiff(f[:, :, ::-1]))
+            else:
+                p = folder / f"{i:03d}.webp"
+                p.write_bytes(image_files.webp_lossless(f[:, :, ::-1]))
+            paths.append(str(p))
+        # The JAX Capture scans a folder for .bmp and .tif, not .webp.
+        sources[kind] = (str(folder) if kind != "WebP lossless" else paths,
+                         paths)
+        write_s[kind] = time.perf_counter() - t1
     m = StereoASW(device=dev, **MAIN)
-    L0 = np.stack([f[:, :w] for f in frames])
-    R0 = np.stack([f[:, w:] for f in frames])
-    ref = np.concatenate([m.computeBatch(L0[a:a + STREAM_B],
-                                         R0[a:a + STREAM_B])
-                          for a in range(0, len(frames), STREAM_B)])
+
+    def maps(fr):
+        L0 = np.stack([f[:, :w] for f in fr])
+        R0 = np.stack([f[:, w:] for f in fr])
+        return np.concatenate([m.computeBatch(L0[a:a + STREAM_B],
+                                              R0[a:a + STREAM_B])
+                               for a in range(0, len(fr), STREAM_B)])
+
+    ref = maps(frames)
     pad = MAIN["winSize"] // 2
     inner = ref[:, pad:-pad, MAIN["maxDisparity"] + pad:-pad]
     share = float((inner == shifts[:, None, None]).mean())
     check(share >= STREAM_BAR, f"phase 29 in-memory maps: {share:.2%} of "
           "the interior at the frames' shifts")
+    # Each stream's frames as Capture gives them (BGR, contiguous) and the
+    # maps they must give: the in-memory ones for the lossless formats,
+    # those of the decoded files for JPEG-in-TIFF.
+    expected = {}
+    for kind, (_, paths) in sources.items():
+        if kind == "JPEG-in-TIFF":
+            dec = [reversed_rgb(imgio.read_samples(p)) for p in paths]
+            dec_maps = maps(dec)
+            expected[kind] = ({f.tobytes(): i for i, f in enumerate(dec)},
+                              dec_maps)
+            jpeg_share = float((dec_maps[:, pad:-pad, MAIN["maxDisparity"]
+                                         + pad:-pad]
+                                == shifts[:, None, None]).mean())
+        else:
+            expected[kind] = ({f.tobytes(): i for i, f in enumerate(frames)},
+                              ref)
 
     report = {}
     asw_cuda.launches = 0
     with calls_of(asw_cuda, "_asw_pass") as k1_calls:
-        for ext in FORMAT_EXTS:
-            name = f"{w}x{h} {ext[1:].upper()}"
+        for kind, (source, _) in sources.items():
+            name = f"{w}x{h} {kind}"
+            index, want = expected[kind]
             pairs = profiling.Throughput(name, unit="pairs")
             kept, stages = [], []
 
@@ -3074,30 +3169,30 @@ def formats_phase(dev, card):
                 stages.append((t1 - t0, t2 - t1, time.perf_counter() - t2))
 
             t_stream = time.perf_counter()
-            with utils.Capture(str(folders[ext])) as cap:
+            with utils.Capture(source) as cap:
                 check(cap.isFile, f"{name}: Capture is not a file sequence")
                 batch(cap)  # warm
                 for _ in range(STREAM_TIMED):
                     with pairs.measure(STREAM_B):
                         batch(cap)
             stream_s = time.perf_counter() - t_stream
-            # Each grabbed frame is one of the written ones, byte for byte,
-            # and its map is that frame's map in memory.
+            # Each grabbed frame is one of the written ones (decoded), byte
+            # for byte, and its map is the one that frame must give.
             seen = set()
             for got, disp in kept:
                 for g, d in zip(got, disp):
                     k = index.get(g.tobytes())
                     check(k is not None, f"{name}: a grabbed frame equals "
                           "no written frame")
-                    check(np.array_equal(d, ref[k]), f"{name}: the map of "
-                          f"frame {k} differs from the in-memory map")
+                    check(np.array_equal(d, want[k]), f"{name}: the map of "
+                          f"frame {k} differs from the expected map")
                     seen.add(k)
             med = [statistics.median(st[i] for st in stages[1:]) * 1e3
                    for i in range(3)]
             report[name] = (pairs.report()["pairs_per_s"], len(seen),
                             stream_s, med)
     n = asw_cuda.launches
-    calls = len(FORMAT_EXTS) * (1 + STREAM_TIMED)
+    calls = len(FORMAT_STREAMS) * (1 + STREAM_TIMED)
     check(n == calls and len(k1_calls) == calls,
           f"phase 29: {n} K1 launches ({len(k1_calls)} calls seen), "
           f"expected {calls}")
@@ -3119,12 +3214,13 @@ def formats_phase(dev, card):
     shutil.rmtree(root, ignore_errors=True)
     print(f"phase 29 image formats: (a) {n_fix} fixtures ({', '.join(kinds)}"
           f"; arrays of Pillow {pil}) equal on this host in {fix_s:.2f} s | "
-          f"(b) {len(frames)} side-by-side {2 * w}x{h} frames written by "
-          f"imgio as " + " and ".join(FORMAT_EXTS) + f" in {write_s:.2f} s, "
-          f"each folder through Capture into StereoASW(35, 14, 4, 15, 17.5, "
+          f"(b) {len(frames)} side-by-side {2 * w}x{h} frames written as "
+          + ", ".join(f"{k} ({v:.2f} s)" for k, v in write_s.items())
+          + f", each through Capture into StereoASW(35, 14, 4, 15, 17.5, "
           f"consistent).computeBatch B={STREAM_B} (one warm batch, "
           f"{STREAM_TIMED} timed), maps equal to the in-memory frames' "
-          f"({share:.2%} of their interior at the shift), K1 launches {n}: "
+          f"({share:.2%} of their interior at the shift; JPEG-in-TIFF's to "
+          f"the decoded files', {jpeg_share:.2%}), K1 launches {n}: "
           + ", ".join(f"{k} {v[0]:.1f} pairs/s ({v[1]} of {len(frames)} "
                       f"frames seen; host ms a batch: grab wait {v[3][0]:.2f}"
                       f", stack {v[3][1]:.2f}, computeBatch {v[3][2]:.2f}; "

@@ -28,7 +28,9 @@ The host sources are built the same way with ``g++`` (``HOST_SOURCES``):
 ``native/_ply.cpp``, the PLY writer and parser, ``native/_png.cpp``,
 the PNG row filters undone, ``native/_jpeg.cpp``, the JPEG codec
 (baseline and progressive decoding), ``native/_tiff.cpp``, TIFF's LZW and
-PackBits decoders, and ``native/_bmp.cpp``, BMP's RLE decoder.
+PackBits decoders, ``native/_bmp.cpp``, BMP's RLE decoder, and
+``native/_fax.cpp``, TIFF's CCITT decoders, ``native/_gif.cpp``, GIF's
+LZW, and ``native/_webp.cpp``, the WebP decoder (VP8L, VP8 and alpha).
 
 Pointers and the stream are passed as ``c_void_p``, integers as ``c_int``
 (``c_longlong`` for sizes of the host libraries), floats as ``c_float`` or
@@ -57,7 +59,10 @@ HOST_SOURCES = {"ply": _CSRC.parent / "native" / "_ply.cpp",
                 "png": _CSRC.parent / "native" / "_png.cpp",
                 "jpeg": _CSRC.parent / "native" / "_jpeg.cpp",
                 "tiff": _CSRC.parent / "native" / "_tiff.cpp",
-                "bmp": _CSRC.parent / "native" / "_bmp.cpp"}
+                "bmp": _CSRC.parent / "native" / "_bmp.cpp",
+                "fax": _CSRC.parent / "native" / "_fax.cpp",
+                "gif": _CSRC.parent / "native" / "_gif.cpp",
+                "webp": _CSRC.parent / "native" / "_webp.cpp"}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _L, _D, _S = ctypes.c_longlong, ctypes.c_double, ctypes.c_char_p
@@ -128,8 +133,8 @@ _SIGNATURES = {
     "jpeg": {
         # data, n, info (int[3])
         "jpeg_header": ([_P, _L, _P], _I),
-        # data, n, out, cap, bgr
-        "jpeg_decode": ([_P, _L, _P, _L, _I], _I),
+        # data, n, out, cap, bgr, colour
+        "jpeg_decode": ([_P, _L, _P, _L, _I, _I], _I),
         # img, h, w, c, bgr, quality, hs, vs, out, cap
         "jpeg_encode": ([_P] + [_I] * 7 + [_P, _L], _L),
         "jpeg_error": ([], ctypes.c_char_p),
@@ -143,6 +148,22 @@ _SIGNATURES = {
     "bmp": {
         # in, n, start, rle4, width, out, cap
         "bmp_rle": ([_P, _L, _L, _I, _L, _P, _L], _L),
+    },
+    "fax": {
+        # in, n, compression, t4options, width, rows, out, stride
+        "tiff_fax": ([_P, _L, _I, _I, _I, _I, _P, _L], _L),
+        "tiff_fax_error": ([], ctypes.c_char_p),
+    },
+    "gif": {
+        # in, n, min_size, out, cap
+        "gif_lzw": ([_P, _L, _I, _P, _L], _L),
+    },
+    "webp": {
+        # data, n, info (int[3])
+        "webp_info": ([_P, _L, _P], _I),
+        # data, n, out
+        "webp_decode": ([_P, _L, _P], _I),
+        "webp_error": ([], ctypes.c_char_p),
     },
 }
 

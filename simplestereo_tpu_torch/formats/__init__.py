@@ -3,20 +3,23 @@ formats
 =======
 
 The image file formats of :mod:`..imgio` that the JAX package reads and
-writes through Pillow: PNG (:mod:`.png`), BMP (:mod:`.bmp`) and TIFF
-(:mod:`.tiff`). Each ``decode(data)`` gives ``(array, mode, palette)``:
+writes through Pillow: PNG (:mod:`.png`), BMP (:mod:`.bmp`), TIFF
+(:mod:`.tiff`), PNM and PFM (:mod:`.pnm`), GIF (:mod:`.gif`) and WebP
+(:mod:`.webp`); JPEG is :mod:`..native`'s. Each ``decode(data)`` gives
+``(array, mode, palette)``:
 
 - ``array`` is what ``np.asarray(Image.open(path))`` gives for the file:
   (H, W) for one band, (H, W, C) for more; bool for mode ``"1"``, uint16
-  for ``"I;16"`` (big-endian ``>u2`` for ``"I;16B"``), uint8 otherwise
-  (palette files: the indices);
+  for ``"I;16"`` (big-endian ``>u2`` for ``"I;16B"``), int32 for ``"I"``,
+  float32 for ``"F"``, uint8 otherwise (palette files: the indices);
 - ``mode`` is the Pillow mode the file opens as;
 - ``palette`` is the (256, 3) uint8 RGB palette of mode ``"P"`` (entries
   that the file leaves out are black, as in Pillow), else None.
 
 Where Pillow departs from a format's documentation, the decoders follow
-Pillow. The byte chains (PNG's row filters, LZW, PackBits, RLE) run in the
-host C++ of :mod:`..native`; the rest is whole-array numpy work.
+Pillow. The byte chains (PNG's row filters, LZW, PackBits, RLE, CCITT,
+GIF's LZW, WebP) run in the host C++ of :mod:`..native`; the rest is
+whole-array numpy work.
 """
 
 import numpy as np

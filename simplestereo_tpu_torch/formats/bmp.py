@@ -79,11 +79,12 @@ def _scale(v, shift, bits):
 def decode(data):
     f = _header(data)
     w, h, bits, comp = f["w"], f["h"], f["bits"], f["comp"]
-    if bits not in (1, 4, 8, 16, 24, 32):
-        raise ValueError(f"BMP pixel depth {bits} is not supported")
     if comp not in (_RAW, _RLE8, _RLE4, _BITFIELDS):
         name = {4: "JPEG", 5: "PNG"}.get(comp, str(comp))
-        raise ValueError(f"BMP compression {name} is not supported")
+        raise ValueError(f"BMP compression {name} is not supported (Pillow "
+                         "does not read it either)")
+    if bits not in (1, 4, 8, 16, 24, 32):
+        raise ValueError(f"BMP pixel depth {bits} is not supported")
     masks = f["masks"]
     if comp == _BITFIELDS and not (
             (bits == 32 and masks in _MASKS32)

@@ -4,8 +4,8 @@ imgio
 
 Image I/O without Pillow: the port of :mod:`simplestereo_tpu.imgio`,
 which reads and writes through Pillow. The port reads what the JAX
-package reads in the formats a stereo or scanning rig produces, and gives
-the same arrays:
+package reads in the formats a stereo or scanning rig, a scanner or a
+dataset produces, and gives the same arrays:
 
 - PNG: every colour type and bit depth (gray 1/2/4/8/16, RGB 8/16,
   palette 1/2/4/8, gray + alpha 8/16, RGBA 8/16), plain or
@@ -13,17 +13,30 @@ the same arrays:
 - BMP: core, info, V4 and V5 headers; 1/4/8-bit palette (raw, RLE8,
   RLE4), 16, 24 and 32-bit (raw or bit fields); bottom-up or top-down
   (:mod:`.formats.bmp`);
-- TIFF: the first image; strips or tiles; none, PackBits, LZW or Deflate,
-  predictor 2; planar 1 or 2; bilevel, 2/4/8/16-bit gray, gray + alpha,
-  RGB and RGBA at 8 and 16 bits, palette (:mod:`.formats.tiff`);
-- JPEG: baseline and progressive (Huffman), gray or YCbCr/RGB, decoded
-  by the host C++ of :mod:`.native` to libjpeg's pixels;
-- binary PGM/PPM (P5/P6, maxval 255).
+- TIFF and BigTIFF: the first image; strips or tiles; none, PackBits, LZW,
+  Deflate, JPEG (with JPEGTables) or CCITT (RLE, Group 3 1-D and 2-D,
+  Group 4); the horizontal and floating-point predictors; planar 1 or 2;
+  bilevel, 2/4/8/12/16-bit gray, signed 8/16/32-bit, unsigned 32-bit and
+  float32 samples, gray + alpha, RGB and RGBA at 8 and 16 bits, palette
+  (and palette + alpha), CMYK, CIELab, and YCbCr with its subsampling
+  (:mod:`.formats.tiff`);
+- JPEG: baseline, progressive, arithmetic-coded (sequential and
+  progressive) and lossless, gray, YCbCr/RGB or CMYK/YCCK, every sampling
+  factor libjpeg takes, decoded by the host C++ of :mod:`.native` to
+  libjpeg's pixels;
+- PNM: P1-P6 at any maxval from 1 to 65535, and gray PFM (``Pf``)
+  (:mod:`.formats.pnm`);
+- GIF: the first frame, in its local or global colour table
+  (:mod:`.formats.gif`);
+- WebP: lossless (VP8L), lossy (VP8) and with alpha (``ALPH``), the
+  first frame of an animation (:mod:`.formats.webp`).
 
-Refused, each with a ``ValueError`` naming the format: GIF, WebP,
-CMYK/YCCK, arithmetic-coded, 12-bit, lossless and hierarchical JPEG,
-JPEG-in-TIFF, float and 32-bit integer TIFF (and the rarer layouts each
-format module lists), and anything else.
+Refused, each with a ``ValueError`` naming the format: the files Pillow
+refuses too (12-bit and hierarchical JPEG, uncompressed YCbCr, float64
+and other TIFF layouts outside Pillow's table, big-endian BigTIFF, BMP
+with JPEG or PNG payloads, colour PFM, PAM, ...), old-style JPEG-in-TIFF
+and CCITT RLEW, the conversion of CIELab to RGB (Pillow's goes through
+LittleCMS), and formats outside these (JPEG 2000, TGA, ...).
 
 Writes ``.png`` (8-bit), ``.jpg``/``.jpeg`` (baseline, quality 75, 4:2:0,
 Pillow's defaults), ``.bmp`` and ``.tif``/``.tiff`` (uncompressed, byte
@@ -36,11 +49,12 @@ reference (``cv2.imread``): colour images are **BGR** uint8 arrays.
 gives ``convert("L")`` (ITU-R 601 luma in fixed point, ``(R*19595 +
 G*38470 + B*7471 + 0x8000) >> 16``, of the palette's colours for a
 palette file), colour gives ``convert("RGB")`` (the palette's colours;
-gray repeated); alpha is dropped, not composited; 16-bit gray is clipped
-at 255, not scaled (so a 16-bit capture read with ``grayscale=True``
-saturates, as it does in the JAX package); bilevel is 0 or 255.
-:func:`read_samples` gives the file's own samples, as
-``np.asarray(Image.open(path))`` does.
+gray repeated); alpha is dropped, not composited; 16 and 32-bit integer
+gray is clipped at 0 and 255, not scaled (so a 16-bit capture read with
+``grayscale=True`` saturates, as it does in the JAX package); float is
+clipped and truncated (NaN gives 0); CMYK is Pillow's ``cmyk2rgb``;
+bilevel is 0 or 255. :func:`read_samples` gives the file's own samples,
+as ``np.asarray(Image.open(path))`` does.
 """
 
 import os
@@ -50,43 +64,13 @@ from struct import error as struct_error
 import numpy as np
 
 from . import native
-from .formats import bmp, png, reversed_rgb, tiff
-
-
-def _pnm_tokens(data, count):
-    """The first ``count`` header tokens of a PNM file (comments skipped)
-    and the offset of the raster, one whitespace byte after the last."""
-    tokens, pos = [], 2
-    while len(tokens) < count:
-        while pos < len(data) and data[pos:pos + 1].isspace():
-            pos += 1
-        if data[pos:pos + 1] == b"#":
-            while pos < len(data) and data[pos:pos + 1] not in b"\r\n":
-                pos += 1
-            continue
-        start = pos
-        while pos < len(data) and not data[pos:pos + 1].isspace():
-            pos += 1
-        if start == pos:
-            raise ValueError("truncated PGM/PPM header")
-        tokens.append(int(data[start:pos]))
-    return tokens, pos + 1
-
-
-def _read_pnm(data):
-    c = 1 if data[:2] == b"P5" else 3
-    (w, h, maxval), pos = _pnm_tokens(data, 3)
-    if maxval != 255:
-        raise ValueError(f"PGM/PPM with maxval {maxval} is not supported "
-                         "(8-bit, maxval 255 only)")
-    raster = np.frombuffer(data, np.uint8, h * w * c, pos)
-    return raster.reshape((h, w) if c == 1 else (h, w, c)), \
-        "L" if c == 1 else "RGB", None
+from .formats import bmp, gif, png, pnm, reversed_rgb, tiff, webp
 
 
 def _read_jpeg(data):
     img = native.jpeg_decode(data, bgr=False)
-    return img, "L" if img.ndim == 2 else "RGB", None
+    mode = "L" if img.ndim == 2 else "RGB" if img.shape[2] == 3 else "CMYK"
+    return img, mode, None
 
 
 def _format(data):
@@ -99,14 +83,12 @@ def _format(data):
         return tiff.decode
     if data[:2] == b"\xff\xd8":
         return _read_jpeg
-    if data[:2] in (b"P5", b"P6"):
-        return _read_pnm
+    if data[:1] == b"P" and data[1:2] in b"1234567fF":
+        return pnm.decode
     if data[:6] in (b"GIF87a", b"GIF89a"):
-        return "GIF"
+        return gif.decode
     if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
-        return "WebP"
-    if data[:2] in (b"P1", b"P2", b"P3", b"P4"):
-        return f"PNM {data[:2].decode()} (plain or bitmap)"
+        return webp.decode
     return "unknown"
 
 
@@ -117,7 +99,8 @@ def _decode(path):
     fmt = _format(data)
     if isinstance(fmt, str):
         raise ValueError(f"{path!r}: {fmt} image format is not supported "
-                         "(PNG, JPEG, BMP, TIFF, PGM and PPM only)")
+                         "(PNG, JPEG, BMP, TIFF, PNM, PFM, GIF and WebP "
+                         "only)")
     try:
         return fmt(data)
     except ValueError as e:
@@ -142,6 +125,26 @@ def _luma(rgb):
              + rgb[..., 2] * 7471 + 0x8000) >> 16).astype(np.uint8)
 
 
+def _cmyk_rgb(cmyk):
+    """Pillow's ``cmyk2rgb``: each of C, M, Y taken out of the ink K leaves
+    white, ``nk - MULDIV255(c, nk)`` with ``nk = 255 - k``."""
+    nk = 255 - cmyk[..., 3:4].astype(np.int32)
+    t = cmyk[..., :3].astype(np.int32) * nk + 128
+    return (nk - (((t >> 8) + t) >> 8)).astype(np.uint8)
+
+
+def _gray_of(arr, mode):
+    """(H, W) uint8 of a one-band mode, as ``convert("L")`` gives it."""
+    if mode == "1":
+        return arr.astype(np.uint8) * np.uint8(255)
+    if mode == "F":  # f2l: clipped, then truncated; NaN gives 0
+        a = np.nan_to_num(arr.astype(np.float32), nan=0.0)
+        return np.clip(a, 0, 255).astype(np.uint8)
+    if arr.dtype != np.uint8:  # I, I;16, I;16B: clipped at 0 and 255
+        return np.clip(arr, 0, 255).astype(np.uint8)
+    return arr
+
+
 def imread(path, grayscale=False):
     """Read an image file to a numpy array (BGR for color, like cv2.imread).
 
@@ -158,20 +161,20 @@ def imread(path, grayscale=False):
         (H, W) uint8 if grayscale, else (H, W, 3) uint8 BGR.
     """
     arr, mode, palette = _decode(path)
-    if mode == "P":
-        return (_luma(palette) if grayscale else palette[:, ::-1])[arr]
-    if arr.ndim == 2:  # 1, L, I;16, I;16B
-        if mode == "1":
-            g = arr.astype(np.uint8) * np.uint8(255)
-        elif arr.dtype != np.uint8:
-            g = np.minimum(arr, 255).astype(np.uint8)
-        else:
-            g = arr
-        g = np.ascontiguousarray(g)
+    if mode in ("P", "PA"):
+        idx = arr if mode == "P" else arr[:, :, 0]
+        return (_luma(palette) if grayscale else palette[:, ::-1])[idx]
+    if mode == "LAB":
+        raise ValueError(f"{path!r}: conversion from LAB to "
+                         f"{'L' if grayscale else 'RGB'} is not supported "
+                         "(Pillow refuses LAB to L; its LAB to RGB goes "
+                         "through LittleCMS)")
+    if arr.ndim == 2 or mode == "LA":
+        g = np.ascontiguousarray(_gray_of(arr if arr.ndim == 2
+                                          else arr[:, :, 0], mode))
         return g if grayscale else np.repeat(g[:, :, None], 3, axis=2)
-    if mode == "LA":
-        g = np.ascontiguousarray(arr[:, :, 0])
-        return g if grayscale else np.repeat(g[:, :, None], 3, axis=2)
+    if mode == "CMYK":
+        arr = _cmyk_rgb(arr)
     if grayscale:
         return _luma(arr)
     return reversed_rgb(arr)  # RGB(A) -> BGR
@@ -205,9 +208,7 @@ def imwrite(path, image):
     elif ext in (".tif", ".tiff"):
         data = tiff.encode(arr)
     elif ext in (".pgm", ".ppm", ".pnm"):
-        magic = b"P5" if arr.ndim == 2 else b"P6"
-        h, w = arr.shape[:2]
-        data = magic + f"\n{w} {h}\n255\n".encode() + arr.tobytes()
+        data = pnm.encode(arr)
     else:
         raise ValueError(f"{path!r}: cannot write {ext or 'no'} extension "
                          "(.png, .jpg, .jpeg, .bmp, .tif, .tiff, .pgm, .ppm "

@@ -6,11 +6,13 @@ Host C++ of the port, built at first use: the PLY writer and parser of
 ``_ply.cpp`` (the port of ``simplestereo_tpu/native/_ply.cpp``), and the
 byte chains of the image decoders, where the JAX package uses Pillow: the
 PNG row unfiltering of ``_png.cpp``, the JPEG codec of ``_jpeg.cpp``
-(baseline and progressive decoding, baseline encoding; for
-:mod:`..imgio` and :mod:`..videoio`), TIFF's LZW and PackBits of
-``_tiff.cpp`` and BMP's RLE8/RLE4 of ``_bmp.cpp`` (for
-:mod:`..formats`). ctypes releases the GIL during each call, so a decode
-in a :class:`..utils.Capture` grab thread leaves the other threads
+(baseline, progressive, arithmetic-coded and lossless decoding, CMYK and
+YCCK too; baseline encoding; for :mod:`..imgio`, :mod:`..videoio` and
+JPEG-in-TIFF), TIFF's LZW and PackBits of ``_tiff.cpp``, TIFF's CCITT
+fax codes of ``_fax.cpp``, BMP's RLE8/RLE4 of ``_bmp.cpp``, GIF's LZW of
+``_gif.cpp`` and the WebP decoder (VP8L, VP8, alpha) of ``_webp.cpp``
+(for :mod:`..formats`). ctypes releases the GIL during each call, so a
+decode in a :class:`..utils.Capture` grab thread leaves the other threads
 running.
 
 Each source has a plain C interface, so it needs no ``Python.h``: ``g++``
@@ -103,6 +105,49 @@ def tiff_decompress(data, size, packbits=False):
     return out[:n]
 
 
+def tiff_fax(data, compression, width, rows, t4options=0):
+    """(rows, (width + 7) // 8) uint8: one TIFF strip or tile of CCITT
+    data (``compression`` 2, 3 or 4; ``FillOrder`` 1), the bits of black
+    runs set, as libtiff decodes it. Rows that the data does not reach
+    are white, as in libtiff."""
+    lib = _build.load_library("fax")
+    stride = (width + 7) // 8
+    out = np.empty((rows, stride), np.uint8)
+    n = lib.tiff_fax(data, len(data), int(compression), int(t4options),
+                     int(width), int(rows), out.ctypes.data, stride)
+    if n < 0:
+        raise ValueError(f"TIFF: {lib.tiff_fax_error().decode()}")
+    return out
+
+
+def gif_lzw(data, min_size, out):
+    """Decode one GIF frame's LZW sub-blocks ``data`` (from just after
+    its minimum code size ``min_size``) into the uint8 array ``out``;
+    returns the indices written (fewer than ``out.size`` when the data
+    ends first)."""
+    lib = _build.load_library("gif")
+    n = lib.gif_lzw(data, len(data), int(min_size), out.ctypes.data,
+                    out.size)
+    if n < 0:
+        raise ValueError("GIF: corrupt LZW data")
+    return n
+
+
+def webp_decode(data):
+    """(RGBA (H, W, 4) uint8, alpha) of WebP bytes: the first frame on
+    its canvas, as libwebp's animation decoder draws it for Pillow;
+    ``alpha`` says whether Pillow opens the file as RGBA (else RGB)."""
+    lib = _build.load_library("webp")
+    info = np.zeros(3, np.int32)
+    if lib.webp_info(data, len(data), info.ctypes.data):
+        raise ValueError(f"WebP: {lib.webp_error().decode()}")
+    w, h, alpha = (int(v) for v in info)
+    out = np.empty((h, w, 4), np.uint8)
+    if lib.webp_decode(data, len(data), out.ctypes.data):
+        raise ValueError(f"WebP: {lib.webp_error().decode()}")
+    return out, bool(alpha)
+
+
 def bmp_rle(data, start, rle4, width, height):
     """(height, width) uint8 palette indices of a BMP's RLE8 (or RLE4)
     stream ``data`` in stored row order, as Pillow decodes it; ``start``
@@ -133,17 +178,23 @@ def _jpeg_header(data):
     return tuple(int(v) for v in info)
 
 
-def jpeg_decode(data, bgr=True):
-    """Decode baseline or progressive JPEG bytes: (H, W, 3) uint8, BGR when
-    ``bgr`` else RGB, or (H, W) uint8 for a grayscale image. Raises
-    ``ValueError`` on malformed data and on the features the codec leaves
-    out (arithmetic coding, lossless and hierarchical frames, 12-bit
-    samples, CMYK/YCCK), naming them."""
+def jpeg_decode(data, bgr=True, colour="auto"):
+    """Decode JPEG bytes: (H, W, 3) uint8, BGR when
+    ``bgr`` else RGB, (H, W) uint8 for a grayscale image, or (H, W, 4)
+    CMYK for a 4-component one (YCCK converted), inverted as Pillow reads
+    it (``CMYK;I``). ``colour`` "auto" takes the colour space from the
+    markers as libjpeg does, "ycbcr" converts YCbCr whatever they say and
+    "none" leaves the components as stored (libtiff's two settings).
+    Baseline, progressive (Huffman or arithmetic), sequential arithmetic
+    and lossless frames decode. Raises ``ValueError`` on malformed data
+    and on what the codec leaves out (hierarchical frames, samples of
+    other than 8 bits, lossless with subsampling), naming it."""
     lib = _build.load_library("jpeg")
     h, w, c = _jpeg_header(data)
-    out = np.empty((h, w, c) if c == 3 else (h, w), np.uint8)
+    out = np.empty((h, w, c) if c > 1 else (h, w), np.uint8)
     if lib.jpeg_decode(data, len(data), out.ctypes.data, out.nbytes,
-                       int(bool(bgr))):
+                       int(bool(bgr)), {"auto": 0, "ycbcr": 1,
+                                        "none": 2}[colour]):
         _jpeg_fail(lib)
     return out
 
@@ -152,7 +203,8 @@ def jpeg_encode(image, quality=75, bgr=True, sampling=(2, 2)):
     """Baseline JPEG bytes of ``image``: (H, W) gray or (H, W, 3) uint8 in
     BGR order when ``bgr`` else RGB. ``sampling`` is the luma component's
     (horizontal, vertical) factors against chroma's 1x1: (2, 2) is 4:2:0,
-    Pillow's default, (2, 1) 4:2:2, (1, 2) 4:4:0 and (1, 1) 4:4:4."""
+    Pillow's default, (2, 1) 4:2:2, (1, 2) 4:4:0 and (1, 1) 4:4:4; any
+    factors of 1 to 4 with at most 8 luma blocks (4:1:1 is (4, 1))."""
     lib = _build.load_library("jpeg")
     img = np.ascontiguousarray(image, np.uint8)
     if img.ndim == 3 and img.shape[2] == 1:

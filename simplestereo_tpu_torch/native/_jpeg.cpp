@@ -8,37 +8,45 @@
 // triangle upsampling of jdsample.c and the fixed-point YCbCr -> RGB tables
 // of jdcolor.c.
 //
-// Decoder: SOF0, SOF1 and SOF2 (progressive, Huffman) at 8 bits, 1 or 3
-// components (YCbCr or Adobe RGB), sampling factors up to 2x2 (4:4:4,
-// 4:2:2, 4:2:0, 4:4:0; larger integer ratios are replicated, as libjpeg's
-// int_upsample does), interleaved or one-component scans, DRI/RSTn restart
-// intervals, and the Annex K standard Huffman tables where a frame has no
-// DHT segment (Motion JPEG frames of webcams and IP cameras usually carry
-// none; libjpeg fills them in the same way). A progressive frame's scans
-// (DC first and refinement, AC first with EOB runs and AC refinement, the
-// successive approximation of T.81 G.1.2) are entropy-decoded into the
-// same coefficient arrays as a baseline frame's, as jdphuff.c does, and
-// the IDCT, upsampling and colour conversion are shared, so both kinds
-// decode to libjpeg's pixels. libjpeg smooths the blocks of a progressive
-// image whose low AC coefficients are not all sent (jdcoefct.c's
-// decompress_smooth_data); every scan script that sends all 64 (Pillow's,
-// libjpeg's jpeg_simple_progression) needs no smoothing, and this decoder
-// does none. Lossless, hierarchical and arithmetic-coded frames, 12-bit
-// samples and 4-component (CMYK/YCCK) images are refused with an error
-// naming the feature.
+// Decoder: SOF0, SOF1 and SOF2 (progressive, Huffman), SOF9 and SOF10
+// (sequential and progressive, arithmetic-coded: jdarith.c's QM decoder,
+// its statistics bins, DAC conditioning) and SOF3 (lossless: predictors
+// 1-7, point transform, Huffman-coded differences; sampling 1x1) at 8
+// bits; 1, 3 or 4 components (YCbCr or Adobe RGB; CMYK or YCCK, which
+// Pillow reads inverted, "CMYK;I"); sampling factors of 1 to 4 (4:4:4,
+// 4:2:2, 4:2:0, 4:4:0 with libjpeg's "fancy" upsampling; other integer
+// ratios replicated, as libjpeg's int_upsample does), at most 10 blocks in
+// an interleaved MCU; interleaved or one-component scans, DRI/RSTn
+// restart intervals, and the Annex K standard Huffman tables where a
+// frame has no DHT segment (Motion JPEG frames of webcams and IP cameras
+// usually carry none; libjpeg fills them in the same way). A progressive
+// frame's scans (DC first and refinement, AC first with EOB runs and AC
+// refinement, the successive approximation of T.81 G.1.2) are
+// entropy-decoded into the same coefficient arrays as a baseline frame's,
+// as jdphuff.c does, and the IDCT, upsampling and colour conversion are
+// shared, so both kinds decode to libjpeg's pixels. libjpeg smooths the
+// blocks of a progressive image whose low AC coefficients are not all
+// sent (jdcoefct.c's decompress_smooth_data); every scan script that
+// sends all 64 (Pillow's, libjpeg's jpeg_simple_progression) needs no
+// smoothing, and this decoder does none. Hierarchical frames, lossless
+// arithmetic frames and samples of other than 8 bits are refused with an
+// error naming the feature; so does Pillow's libjpeg-turbo (its 8-bit API)
+// for all but lossless arithmetic. libtiff's settings for JPEG-in-TIFF
+// are the colour argument of jpeg_decode.
 //
 // Encoder: baseline, JFIF, 1 or 3 components, luma sampling factors h x v
-// (2x2 = 4:2:0 by default, as Pillow), the Annex K quantisation tables
+// of 1 to 4 (at most 8 blocks; 2x2 = 4:2:0 by default, as Pillow) against
+// chroma's 1x1, the Annex K quantisation tables
 // scaled by the IJG quality formula, the standard Huffman tables and the
 // ISLOW forward DCT of jfdctint.c; its pixels decode as Pillow's encoder's.
 //
 // C entries (each returns 0 or a byte count on success and -1 on error;
 // jpeg_error() then gives the message, kept per thread):
 //   jpeg_header(data, n, info)              info: int[3] = height, width,
-//                                           components (1 or 3)
-//   jpeg_decode(data, n, out, cap, bgr)     out: height x width x
-//                                           components uint8, colour in
-//                                           BGR order when bgr else RGB
+//                                           components (1, 3 or 4)
+//   jpeg_decode(data, n, out, cap, bgr, colour)
+//       out: height x width x components uint8, colour in BGR order when
+//       bgr else RGB; colour 0 as the markers say, 1 YCbCr, 2 as stored
 //   jpeg_encode(img, h, w, c, bgr, quality, hs, vs, out, cap)
 //       img: h x w x c uint8 (c 1 or 3); returns the byte count, or
 //       -2 - (bytes needed) when cap is too small.
@@ -258,6 +266,111 @@ inline int extend(int v, int s) {
   return v < (1 << (s - 1)) ? v - (1 << s) + 1 : v;
 }
 
+// T.81 Table D.2 as libjpeg's jaricom.c packs it: Qe << 16 | next index
+// after an MPS << 8 | switch-MPS flag << 7 | next index after an LPS.
+const int32_t kAriTab[114] = {
+    0x5a1d0181, 0x2586020e, 0x11140310, 0x080b0412, 0x03d80514, 0x01da0617,
+    0x00e50719, 0x006f081c, 0x0036091e, 0x001a0a21, 0x000d0b23, 0x00060c09,
+    0x00030d0a, 0x00010d0c, 0x5a7f0f8f, 0x3f251024, 0x2cf21126, 0x207c1227,
+    0x17b91328, 0x1182142a, 0x0cef152b, 0x09a1162d, 0x072f172e, 0x055c1830,
+    0x04061931, 0x03031a33, 0x02401b34, 0x01b11c36, 0x01441d38, 0x00f51e39,
+    0x00b71f3b, 0x008a203c, 0x0068213e, 0x004e223f, 0x003b2320, 0x002c0921,
+    0x5ae125a5, 0x484c2640, 0x3a0d2741, 0x2ef12843, 0x261f2944, 0x1f332a45,
+    0x19a82b46, 0x15182c48, 0x11772d49, 0x0e742e4a, 0x0bfb2f4b, 0x09f8304d,
+    0x0861314e, 0x0706324f, 0x05cd3330, 0x04de3432, 0x040f3532, 0x03633633,
+    0x02d43734, 0x025c3835, 0x01f83936, 0x01a43a37, 0x01603b38, 0x01253c39,
+    0x00f63d3a, 0x00cb3e3b, 0x00ab3f3d, 0x008f203d, 0x5b1241c1, 0x4d044250,
+    0x412c4351, 0x37d84452, 0x2fe84553, 0x293c4654, 0x23794756, 0x1edf4857,
+    0x1aa94957, 0x174e4a48, 0x14244b48, 0x119c4c4a, 0x0f6b4d4a, 0x0d514e4b,
+    0x0bb64f4d, 0x0a40304d, 0x583251d0, 0x4d1c5258, 0x438e5359, 0x3bdd545a,
+    0x34ee555b, 0x2eae565c, 0x299a575d, 0x25164756, 0x557059d8, 0x4ca95a5f,
+    0x44d95b60, 0x3e225c61, 0x38245d63, 0x32b45e63, 0x2e17565d, 0x56a860df,
+    0x4f466165, 0x47e56266, 0x41cf6367, 0x3c3d6468, 0x375e5d63, 0x52316669,
+    0x4c0f676a, 0x4639686b, 0x415e6367, 0x56276ae9, 0x50e76b6c, 0x4b85676d,
+    0x55976d6e, 0x504f6b6f, 0x5a106fee, 0x55226d70, 0x59eb6ff0, 0x5a1d7171,
+};
+
+// jdarith.c's arith_decode: the QM decoder of T.81 Annex D over the scan's
+// bytes (0xFF 0x00 stuffing; at a marker, zeros from then on).
+struct ArithReader {
+  const uint8_t* data;
+  size_t n, pos;
+  int64_t c = 0, a = 0;
+  int ct = -16;
+  int marker = 0;         // the marker the data ran into, 0 before
+  size_t marker_at = 0;   // its 0xFF (n: the data's end)
+  int byte() {
+    if (marker) return 0;
+    if (pos >= n) {
+      marker = 0xD9;
+      marker_at = n;
+      return 0;
+    }
+    const size_t at = pos;
+    int d = data[pos++];
+    if (d == 0xFF) {
+      while (pos < n && data[pos] == 0xFF) ++pos;
+      if (pos >= n) {
+        marker = 0xD9;
+        marker_at = n;
+        return 0;
+      }
+      const int m = data[pos++];
+      if (m == 0) return 0xFF;
+      marker = m;
+      marker_at = at;
+      return 0;
+    }
+    return d;
+  }
+  bool broken = false;  // a bad code: the rest of the interval decodes
+                        // nothing (jdarith.c's ct = -1)
+  void reset() {
+    c = 0;
+    a = 0;
+    ct = -16;
+    broken = false;
+  }
+  int decode(uint8_t* st) {
+    while (a < 0x8000) {
+      if (--ct < 0) {
+        c = (c << 8) | byte();
+        if ((ct += 8) < 0)
+          if (++ct == 0) a = 0x8000;
+      }
+      a <<= 1;
+    }
+    int sv = *st;
+    int64_t qe = kAriTab[sv & 0x7F];
+    const uint8_t nl = uint8_t(qe & 0xFF);
+    qe >>= 8;
+    const uint8_t nm = uint8_t(qe & 0xFF);
+    qe >>= 8;
+    int64_t temp = a - qe;
+    a = temp;
+    temp <<= ct;
+    if (c >= temp) {
+      c -= temp;
+      if (a < qe) {
+        a = qe;
+        *st = uint8_t((sv & 0x80) ^ nm);
+      } else {
+        a = qe;
+        *st = uint8_t((sv & 0x80) ^ nl);
+        sv ^= 0x80;
+      }
+    } else if (a < 0x8000) {
+      if (a < qe) {
+        *st = uint8_t((sv & 0x80) ^ nl);
+        sv ^= 0x80;
+      } else {
+        *st = uint8_t((sv & 0x80) ^ nm);
+      }
+    }
+    return sv >> 7;
+  }
+};
+
 struct Component {
   int id = 0, h = 1, v = 1, tq = 0;
   int td = 0, ta = 0;       // Huffman tables of the current scan
@@ -266,6 +379,7 @@ struct Component {
   bool latched = false;     // quantisation table copied at its first scan
   int quant[64];
   std::vector<int16_t> coef;  // bw * bh blocks of 64, natural order
+  std::vector<uint16_t> raw;  // lossless: the samples before the transform
   std::vector<uint8_t> plane; // bw*8 x bh*8 samples after the IDCT
 };
 
@@ -278,9 +392,14 @@ struct Decoder {
   int adobe_transform = -1;
   int restart = 0;
   int scans = 0;
-  bool progressive = false;
+  bool progressive = false, arith = false, lossless = false;
   int eobrun = 0;  // blocks left in the current AC end-of-band run
-  Component comp[3];
+  // Arithmetic coding: the statistics bins of each table (jdarith.c's
+  // DC_STAT_BINS, AC_STAT_BINS) and the DAC conditioning (L, U, Kx).
+  uint8_t dc_stats[4][64], ac_stats[4][256];
+  int dac_l[4] = {0, 0, 0, 0}, dac_u[4] = {1, 1, 1, 1},
+      dac_k[4] = {5, 5, 5, 5};
+  Component comp[4];
   int quant[4][64];
   bool quant_defined[4] = {false, false, false, false};
   Huffman dc[4], ac[4];
@@ -310,9 +429,7 @@ struct Decoder {
     ncomp = u8(p + 5);
     if (height == 0) fail("JPEG with height 0 (DNL) is not supported");
     if (width == 0) fail("corrupt JPEG: width 0");
-    if (ncomp == 4)
-      fail("4-component (CMYK/YCCK) JPEG is not supported");
-    if (ncomp != 1 && ncomp != 3)
+    if (ncomp != 1 && ncomp != 3 && ncomp != 4)
       fail("JPEG with %d components is not supported", ncomp);
     if (len < 8 + 3 * ncomp) fail("corrupt JPEG: short SOF%d", marker - 0xC0);
     for (int i = 0; i < ncomp; ++i) {
@@ -372,10 +489,12 @@ struct Decoder {
     }
   }
 
+  // jdmarker.c's examine_app0 and examine_app14: a JFIF payload of at
+  // least 14 bytes, an Adobe one of at least 12.
   void parse_app(size_t p, int len, int marker) {
-    if (marker == 0xE0 && len >= 7 && memcmp(data + p, "JFIF\0", 5) == 0)
+    if (marker == 0xE0 && len >= 14 && memcmp(data + p, "JFIF\0", 5) == 0)
       jfif = true;
-    if (marker == 0xEE && len >= 14 && memcmp(data + p, "Adobe", 5) == 0) {
+    if (marker == 0xEE && len >= 12 && memcmp(data + p, "Adobe", 5) == 0) {
       adobe = true;
       adobe_transform = data[p + 11];
     }
@@ -486,6 +605,201 @@ struct Decoder {
     }
   }
 
+  // A lossless scan (T.81 Annex H, libjpeg-turbo's jdlossls.c): Huffman-
+  // coded differences (category 16: 32768) from predictor `psv`, samples
+  // scaled up by the point transform `pt`, into the components' planes.
+  // Sampling 1x1, restarts at row boundaries.
+  void lossless_scan(Component** sc, int ns, int psv, int pt, size_t start) {
+    if (psv < 1 || psv > 7) fail("corrupt JPEG: lossless predictor %d", psv);
+    for (int i = 0; i < ns; ++i) {
+      Component& c = *sc[i];
+      if (c.h != hmax || c.v != vmax)
+        fail("lossless JPEG with subsampled components is not supported");
+      if (!dc[c.td].defined)
+        fail("corrupt JPEG: Huffman table %d is not defined", c.td);
+      if (c.raw.empty()) c.raw.assign(size_t(width) * height, 0);
+    }
+    if (restart && restart % width)
+      fail("lossless JPEG restart interval %d is not whole rows", restart);
+    BitReader br{data, n, start};
+    int preds[4] = {0, 0, 0, 0};
+    int left = restart;
+    bool first_row = true;
+    for (int y = 0; y < height; ++y) {
+      if (y && restart && left == 0) {
+        restart_marker(br, preds);
+        left = restart;
+        first_row = true;
+      }
+      for (int x = 0; x < width; ++x) {
+        for (int i = 0; i < ns; ++i) {
+          Component& c = *sc[i];
+          int s = decode_symbol(br, dc[c.td]);
+          int diff;
+          if (s == 16) {
+            diff = 32768;
+          } else {
+            if (s > 15) s = 0;
+            diff = s ? extend(br.get(s), s) : 0;
+          }
+          uint16_t* row = &c.raw[size_t(y) * width];
+          int pred;
+          if (first_row) {
+            pred = x == 0 ? 1 << (8 - pt - 1) : row[x - 1];
+          } else if (x == 0) {
+            pred = row[x - width];
+          } else {
+            const int ra = row[x - 1], rb = row[x - width],
+                      rc = row[x - width - 1];
+            switch (psv) {
+              case 1: pred = ra; break;
+              case 2: pred = rb; break;
+              case 3: pred = rc; break;
+              case 4: pred = ra + rb - rc; break;
+              case 5: pred = ra + ((rb - rc) >> 1); break;
+              case 6: pred = rb + ((ra - rc) >> 1); break;
+              default: pred = (ra + rb) >> 1;
+            }
+          }
+          row[x] = uint16_t((diff + pred) & 0xFFFF);
+        }
+        if (restart) --left;
+      }
+      first_row = false;
+    }
+    for (int i = 0; i < ns; ++i) {  // the point transform, to 8 bits
+      Component& c = *sc[i];
+      const int stride = c.bw * 8;
+      c.plane.assign(size_t(stride) * c.bh * 8, 0);
+      for (int y = 0; y < height; ++y)
+        for (int x = 0; x < width; ++x)
+          c.plane[size_t(y) * stride + x] =
+              uint8_t(c.raw[size_t(y) * width + x] << pt);
+    }
+    if (br.at_end && br.padding_used() > 0) fail("truncated JPEG data");
+    size_t q = br.pos;
+    while (q < n && !(data[q] == 0xFF && q + 1 < n && data[q + 1] != 0x00 &&
+                      data[q + 1] != 0xFF &&
+                      !(data[q + 1] >= 0xD0 && data[q + 1] <= 0xD7)))
+      ++q;
+    pos = q;
+    ++scans;
+  }
+
+  // One block's share of an arithmetic-coded scan (jdarith.c's
+  // decode_mcu, decode_mcu_DC_first, _AC_first, _DC_refine, _AC_refine;
+  // kind as in parse_sos).
+  // A bad code (a magnitude or a run past its range) is libjpeg's
+  // warning: the block keeps what it has, and the rest of the restart
+  // interval decodes nothing.
+  void arith_unit(ArithReader& ar, Component& c, int& pred, int& ctx,
+                  int16_t* blk, int kind, int ss, int se, int al) {
+    if (ar.broken) return;
+    uint8_t fixed = 113;  // the fixed-probability bin
+    if (kind == 0 || kind == 1) {  // DC (sequential or first stage)
+      uint8_t* st = dc_stats[c.td] + ctx;
+      if (ar.decode(st) == 0) {
+        ctx = 0;
+      } else {
+        const int sign = ar.decode(st + 1);
+        st += 2 + sign;
+        int v;
+        int m0 = ar.decode(st), m = m0;
+        if (m0) {
+          st = dc_stats[c.td] + 20;
+          while (ar.decode(st)) {
+            if ((m <<= 1) == 0x8000) {
+              ar.broken = true;
+              return;
+            }
+            ++st;
+          }
+        }
+        if (m < ((1 << dac_l[c.td]) >> 1))
+          ctx = 0;
+        else if (m > ((1 << dac_u[c.td]) >> 1))
+          ctx = 12 + sign * 4;
+        else
+          ctx = 4 + sign * 4;
+        v = m;
+        st += 14;
+        while (m >>= 1)
+          if (ar.decode(st)) v |= m;
+        v += 1;
+        if (sign) v = -v;
+        pred += v;
+      }
+      blk[0] = int16_t(kind == 1 ? pred * (1 << al) : pred);
+      if (kind == 1) return;
+    }
+    if (kind == 2) {
+      if (ar.decode(&fixed)) blk[0] = int16_t(blk[0] | (1 << al));
+      return;
+    }
+    if (kind == 4) {  // AC refinement
+      const int p1 = 1 << al, m1 = -1 * (1 << al);
+      int kex = se;
+      for (; kex > 0; --kex)
+        if (blk[kNatural[kex]]) break;
+      for (int k = ss; k <= se; ++k) {
+        uint8_t* st = ac_stats[c.ta] + 3 * (k - 1);
+        if (k > kex && ar.decode(st)) break;
+        for (;;) {
+          int16_t& co = blk[kNatural[k]];
+          if (co) {
+            if (ar.decode(st + 2)) co = int16_t(co < 0 ? co + m1 : co + p1);
+            break;
+          }
+          if (ar.decode(st + 1)) {
+            co = int16_t(ar.decode(&fixed) ? m1 : p1);
+            break;
+          }
+          st += 3;
+          if (++k > se) {
+            ar.broken = true;
+            return;
+          }
+        }
+      }
+      return;
+    }
+    // AC: every coefficient (sequential) or the band ss..se (first stage).
+    const int k0 = kind == 0 ? 1 : ss, k1 = kind == 0 ? 63 : se;
+    const int shift = kind == 0 ? 0 : al;
+    for (int k = k0; k <= k1; ++k) {
+      uint8_t* st = ac_stats[c.ta] + 3 * (k - 1);
+      if (ar.decode(st)) break;  // EOB
+      while (ar.decode(st + 1) == 0) {
+        st += 3;
+        if (++k > k1) {
+          ar.broken = true;
+          return;
+        }
+      }
+      const int sign = ar.decode(&fixed);
+      st += 2;
+      int m = ar.decode(st);
+      if (m && ar.decode(st)) {
+        m <<= 1;
+        st = ac_stats[c.ta] + (k <= dac_k[c.ta] ? 189 : 217);
+        while (ar.decode(st)) {
+          if ((m <<= 1) == 0x8000) {
+            ar.broken = true;
+            return;
+          }
+          ++st;
+        }
+      }
+      int v = m;
+      st += 14;
+      while (m >>= 1)
+        if (ar.decode(st)) v |= m;
+      v += 1;
+      if (sign) v = -v;
+      blk[kNatural[k]] = int16_t(v * (1 << shift));
+    }
+  }
+
   // At a restart boundary: drop the bits left, step over RSTn (or find the
   // next one, if the data lost it) and reset the DC predictions.
   void restart_marker(BitReader& br, int* preds) {
@@ -509,7 +823,7 @@ struct Decoder {
     if (p >= n) {
       br.pos = n;
     }
-    for (int i = 0; i < 3; ++i) preds[i] = 0;
+    for (int i = 0; i < 4; ++i) preds[i] = 0;
     eobrun = 0;
   }
 
@@ -518,7 +832,7 @@ struct Decoder {
     int ns = u8(p);
     if (ns < 1 || ns > ncomp || len < 6 + 2 * ns)
       fail("corrupt JPEG: scan of %d components", ns);
-    Component* sc[3];
+    Component* sc[4];
     for (int i = 0; i < ns; ++i) {
       int id = u8(p + 1 + 2 * i), t = u8(p + 2 + 2 * i);
       Component* c = nullptr;
@@ -535,6 +849,10 @@ struct Decoder {
     // kind 0: baseline; progressive 1: DC first, 2: DC refinement, 3: AC
     // first, 4: AC refinement.
     int kind = 0;
+    if (lossless) {
+      lossless_scan(sc, ns, ss, al, p + len - 2);
+      return;
+    }
     if (!progressive) {
       if (ss != 0 || se != 63 || ah != 0 || al != 0)
         fail("corrupt JPEG: baseline scan with spectral range %d..%d", ss, se);
@@ -546,10 +864,15 @@ struct Decoder {
         fail("corrupt JPEG: successive approximation %d/%d", ah, al);
       kind = ss == 0 ? (ah ? 2 : 1) : (ah ? 4 : 3);
     }
+    if (ns > 1) {  // jdinput.c: at most 10 blocks in an interleaved MCU
+      int blocks = 0;
+      for (int i = 0; i < ns; ++i) blocks += sc[i]->h * sc[i]->v;
+      if (blocks > 10) fail("corrupt JPEG: %d blocks in an MCU", blocks);
+    }
     default_tables();
     for (int i = 0; i < ns; ++i) {
       Component& c = *sc[i];
-      if (!dc[c.td].defined || !ac[c.ta].defined)
+      if (!arith && (!dc[c.td].defined || !ac[c.ta].defined))
         fail("corrupt JPEG: Huffman table %d/%d is not defined", c.td, c.ta);
       if (!c.latched) {
         if (!quant_defined[c.tq])
@@ -560,10 +883,45 @@ struct Decoder {
       if (c.coef.empty()) c.coef.assign(size_t(c.bw) * c.bh * 64, 0);
     }
     BitReader br{data, n, p + len - 2};
-    int preds[3] = {0, 0, 0};
+    ArithReader ar{data, n, p + len - 2};
+    int preds[4] = {0, 0, 0, 0}, dc_ctx[4] = {0, 0, 0, 0};
     int left = restart;
     eobrun = 0;
-    auto unit = [&](Component& c, int& pred, int16_t* blk) {
+    // jdarith.c's start_pass and process_restart: the statistics of the
+    // scan's tables and the DC predictions start again.
+    auto arith_start = [&]() {
+      for (int i = 0; i < ns; ++i) {
+        if (!progressive || (ss == 0 && ah == 0)) {
+          memset(dc_stats[sc[i]->td], 0, 64);
+          preds[i] = dc_ctx[i] = 0;
+        }
+        if (!progressive || ss) memset(ac_stats[sc[i]->ta], 0, 256);
+      }
+      ar.reset();
+    };
+    if (arith) arith_start();
+    auto restart_now = [&]() {
+      if (!arith) {
+        restart_marker(br, preds);
+        return;
+      }
+      if (!(ar.marker >= 0xD0 && ar.marker <= 0xD7)) {
+        size_t q = ar.pos;
+        while (q + 1 < n && !(data[q] == 0xFF && data[q + 1] >= 0xD0 &&
+                              data[q + 1] <= 0xD7))
+          ++q;
+        ar.pos = q + 2 <= n ? q + 2 : n;
+      }
+      ar.marker = 0;
+      arith_start();
+    };
+    auto unit = [&](int i, int16_t* blk) {
+      Component& c = *sc[i];
+      int& pred = preds[i];
+      if (arith) {
+        arith_unit(ar, c, pred, dc_ctx[i], blk, kind, ss, se, al);
+        return;
+      }
       switch (kind) {
         case 0: decode_block(br, c, pred, blk); break;
         case 1: decode_dc_first(br, c, pred, blk, al); break;
@@ -579,19 +937,19 @@ struct Decoder {
         for (int x = 0; x < bx; ++x) {
           if (restart) {
             if (left == 0) {
-              restart_marker(br, preds);
+              restart_now();
               left = restart;
             }
             --left;
           }
-          unit(c, preds[0], &c.coef[(size_t(y) * c.bw + x) * 64]);
+          unit(0, &c.coef[(size_t(y) * c.bw + x) * 64]);
         }
     } else {
       for (int my = 0; my < mcuy; ++my)
         for (int mx = 0; mx < mcux; ++mx) {
           if (restart) {
             if (left == 0) {
-              restart_marker(br, preds);
+              restart_now();
               left = restart;
             }
             --left;
@@ -601,14 +959,17 @@ struct Decoder {
             for (int v = 0; v < c.v; ++v)
               for (int h = 0; h < c.h; ++h) {
                 size_t b = size_t(my * c.v + v) * c.bw + mx * c.h + h;
-                unit(c, preds[i], &c.coef[b * 64]);
+                unit(i, &c.coef[b * 64]);
               }
           }
         }
     }
-    if (br.at_end && br.padding_used() > 0) fail("truncated JPEG data");
+    if (!arith && br.at_end && br.padding_used() > 0)
+      fail("truncated JPEG data");
+    if (arith && ar.marker == 0xD9 && ar.marker_at >= n)
+      fail("truncated JPEG data");
     // Step past the entropy-coded data to the next marker.
-    size_t q = br.pos;
+    size_t q = arith ? (ar.marker ? ar.marker_at : ar.pos) : br.pos;
     while (q < n) {
       if (data[q] == 0xFF && q + 1 < n && data[q + 1] != 0x00 &&
           data[q + 1] != 0xFF && !(data[q + 1] >= 0xD0 && data[q + 1] <= 0xD7))
@@ -621,15 +982,10 @@ struct Decoder {
 
   // Frame types this decoder refuses, named.
   static void refuse(int m) {
-    if (m == 0xCA)
-      fail("arithmetic-coded progressive JPEG (SOF%d) is not supported",
-           m - 0xC0);
-    if (m == 0xC3 || m == 0xC7 || m == 0xCB || m == 0xCF)
+    if (m == 0xC7 || m == 0xCB || m == 0xCF)
       fail("lossless JPEG (SOF%d) is not supported", m - 0xC0);
-    if (m == 0xC5 || m == 0xC6 || m == 0xCE)
+    if (m == 0xC5 || m == 0xC6 || m == 0xCD || m == 0xCE)
       fail("hierarchical JPEG (SOF%d) is not supported", m - 0xC0);
-    if (m == 0xC9 || m == 0xCD || m == 0xCC)
-      fail("arithmetic-coded JPEG (marker 0x%X) is not supported", m);
   }
 
   // Reads the markers and decodes every scan; with header_only, stops
@@ -654,8 +1010,11 @@ struct Decoder {
       if (end > n) fail("truncated JPEG data");
       pos = end;
       refuse(m);
-      if (m == 0xC0 || m == 0xC1 || m == 0xC2) {
-        progressive = m == 0xC2;
+      if (m == 0xC0 || m == 0xC1 || m == 0xC2 || m == 0xC3 || m == 0xC9 ||
+          m == 0xCA) {
+        progressive = m == 0xC2 || m == 0xCA;
+        arith = m >= 0xC9;
+        lossless = m == 0xC3;
         parse_sof(p, len, m);
         if (header_only) return;
       } else if (header_only) {
@@ -666,6 +1025,20 @@ struct Decoder {
         parse_dqt(p, end);
       } else if (m == 0xDD) {
         restart = u16(p);
+      } else if (m == 0xCC) {  // DAC: arithmetic conditioning (jdmarker.c)
+        for (size_t q = p; q + 1 < end; q += 2) {
+          const int t = u8(q), v = u8(q + 1);
+          if ((t & 15) > 3) fail("corrupt JPEG: DAC table %d", t & 15);
+          if (t >> 4) {
+            if (v < 1 || v > 63) fail("corrupt JPEG: DAC value %d", v);
+            dac_k[t & 15] = v;
+          } else {
+            dac_l[t & 15] = v & 15;
+            dac_u[t & 15] = v >> 4;
+            if (dac_l[t & 15] > dac_u[t & 15])
+              fail("corrupt JPEG: DAC value %d", v);
+          }
+        }
       } else if (m == 0xDA) {
         parse_sos(p, len);
       } else if (m >= 0xE0 && m <= 0xEF) {
@@ -866,7 +1239,11 @@ const YccTables kYcc;
 
 inline uint8_t clamp255(int v) { return uint8_t(v < 0 ? 0 : v > 255 ? 255 : v); }
 
-void decode(const uint8_t* data, size_t n, uint8_t* out, size_t cap, bool bgr) {
+// colour: 0 as libjpeg's default_decompress_parms decides from the
+// markers, 1 YCbCr whatever the markers say, 2 none (the components as
+// stored: libtiff's JCS_UNKNOWN for a photometric other than YCbCr).
+void decode(const uint8_t* data, size_t n, uint8_t* out, size_t cap, bool bgr,
+            int colour) {
   Decoder d{data, n};
   d.parse();
   if (!d.frame) fail("JPEG without a frame header");
@@ -877,7 +1254,8 @@ void decode(const uint8_t* data, size_t n, uint8_t* out, size_t cap, bool bgr) {
   for (int i = 0; i < C; ++i) {
     Component& c = d.comp[i];
     const int stride = c.bw * 8;
-    c.plane.assign(size_t(stride) * c.bh * 8, 128);
+    if (!d.lossless) c.plane.assign(size_t(stride) * c.bh * 8, 128);
+    if (d.lossless && c.plane.empty()) c.plane.assign(size_t(stride) * c.bh * 8, 0);
     if (!c.coef.empty()) {
       for (int by = 0; by < c.bh; ++by)
         for (int bx = 0; bx < c.bw; ++bx)
@@ -894,9 +1272,38 @@ void decode(const uint8_t* data, size_t n, uint8_t* out, size_t cap, bool bgr) {
     memcpy(out, full[0].data(), size_t(H) * W);
     return;
   }
+  const size_t np = size_t(H) * W;
+  if (C == 4) {
+    // default_decompress_parms: YCCK under an Adobe marker whose
+    // transform is not 0, else CMYK; out_color_space CMYK either way
+    // (ycck_cmyk_convert). Pillow reads the result as "CMYK;I": inverted.
+    const bool ycck = colour != 2 && d.adobe && d.adobe_transform != 0;
+    const uint8_t *p0 = full[0].data(), *p1 = full[1].data(),
+                  *p2 = full[2].data(), *p3 = full[3].data();
+    for (size_t k = 0; k < np; ++k) {
+      uint8_t* o = out + 4 * k;
+      if (ycck) {
+        int y = p0[k], cb = p1[k], cr = p2[k];
+        // 255 - range_limit[255 - (y + ...)]: the YCbCr -> RGB values.
+        o[0] = clamp255(y + kYcc.cr_r[cr]);
+        o[1] = clamp255(y + int((kYcc.cb_g[cb] + kYcc.cr_g[cr]) >> 16));
+        o[2] = clamp255(y + kYcc.cb_b[cb]);
+      } else {
+        o[0] = uint8_t(255 - p0[k]);
+        o[1] = uint8_t(255 - p1[k]);
+        o[2] = uint8_t(255 - p2[k]);
+      }
+      o[3] = uint8_t(255 - p3[k]);
+    }
+    return;
+  }
   // jdapimin.c's default_decompress_parms: YCbCr unless marked RGB.
   bool rgb = false;
-  if (d.jfif) {
+  if (colour == 1) {
+    rgb = false;
+  } else if (colour == 2) {
+    rgb = true;
+  } else if (d.jfif) {
     rgb = false;
   } else if (d.adobe) {
     rgb = d.adobe_transform == 0;
@@ -905,7 +1312,6 @@ void decode(const uint8_t* data, size_t n, uint8_t* out, size_t cap, bool bgr) {
   }
   const uint8_t *p0 = full[0].data(), *p1 = full[1].data(), *p2 = full[2].data();
   const int ri = bgr ? 2 : 0, bi = bgr ? 0 : 2;
-  const size_t np = size_t(H) * W;
   for (size_t k = 0; k < np; ++k) {
     uint8_t* o = out + 3 * k;
     if (rgb) {
@@ -1069,8 +1475,9 @@ std::vector<uint8_t> encode(const uint8_t* img, int H, int W, int C, bool bgr,
   if (quality < 1) quality = 1;
   if (quality > 100) quality = 100;
   if (C == 1) hs = vs = 1;
-  if (hs < 1 || hs > 2 || vs < 1 || vs > 2)
-    fail("luma sampling %dx%d is not supported (1 or 2)", hs, vs);
+  if (hs < 1 || hs > 4 || vs < 1 || vs > 4 || hs * vs > 8)
+    fail("luma sampling %dx%d is not supported (1 to 4, at most 8 blocks)",
+         hs, vs);
   // The IJG quality scaling, baseline tables (1..255).
   const int scale = quality < 50 ? 5000 / quality : 200 - quality * 2;
   int qt[2][64];
@@ -1121,10 +1528,10 @@ std::vector<uint8_t> encode(const uint8_t* img, int H, int W, int C, bool bgr,
         sum += plane[i][size_t(yy) * W + xx];
       }
     // jcsample.c's biases: 1, 2, 1, 2, ... (2x2) and 0, 1, 0, 1, ...
-    // (2x1) along the row.
+    // (2x1) along the row; int_downsample's half the count otherwise.
     if (hs == 2 && vs == 2) return (sum + 1 + (x & 1)) >> 2;
-    if (hs == 2) return (sum + (x & 1)) >> 1;
-    return (sum + 1) >> 1;
+    if (hs == 2 && vs == 1) return (sum + (x & 1)) >> 1;
+    return (sum + hs * vs / 2) / (hs * vs);
   };
   Huffman dch[2], ach[2];
   set_table(dch[0], kDcLumBits, kDcVals);
@@ -1242,9 +1649,9 @@ int jpeg_header(const uint8_t* data, long long n, int* info) {
 }
 
 int jpeg_decode(const uint8_t* data, long long n, uint8_t* out, long long cap,
-                int bgr) {
+                int bgr, int colour) {
   try {
-    decode(data, size_t(n), out, size_t(cap), bgr != 0);
+    decode(data, size_t(n), out, size_t(cap), bgr != 0, colour);
     return 0;
   } catch (const Error& e) {
     set_error(e.msg.c_str());

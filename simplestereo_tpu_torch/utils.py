@@ -9,12 +9,14 @@ original would import jax through its package).
 The code is the JAX package's, copied, with one change: :class:`Capture`
 decodes image-file sequences with the port's :mod:`.imgio` where the JAX
 package uses Pillow, and gives the same frames for every format both
-read (the ``.png .jpg .jpeg .bmp .tif .tiff`` files a directory is
-scanned for): ``np.asarray(Image.open(path))`` with the colour channels
+read (a directory is scanned for ``.png .jpg .jpeg .bmp .tif .tiff``
+files; a list may name any): ``np.asarray(Image.open(path))`` with the colour channels
 reversed to BGR, so the same shape and dtype (bool for bilevel files,
 uint16 for 16-bit gray, palette indices for palette files, uint8
-otherwise). A file that :mod:`.imgio` refuses (a GIF or WebP under another
-name, a CMYK JPEG, a float TIFF, ...) is a driver error, which
+otherwise; int32 or float32 for deep PGM, PFM and integer or float
+TIFF; a CMYK file's first three channels reversed, Y, M and C, as the
+JAX package gives them). A file that :mod:`.imgio` refuses (a TGA, a
+JPEG 2000, a 12-bit JPEG, ...) is a driver error, which
 :meth:`Capture.get` raises once the grab thread gives up on it, as it does
 for any failing source. The threaded grabber is host-only by design; the
 drawing helpers are pure numpy so they do not pull OpenCV in.

@@ -7,9 +7,12 @@ Writes one small file for each variant of ``tests/image_files.py``'s
 ``CATALOGUE`` (seeded by its name), ``pillow.npz`` with Pillow's
 ``np.asarray(Image.open(f))``, ``convert("L")`` and ``convert("RGB")`` of
 each (keys ``<name>/samples``, ``<name>/L``, ``<name>/RGB``; ``L`` and
-``RGB`` are left out where they equal the samples), a 1280x720
-progressive JPEG with digests of Pillow's arrays (its arrays would not
-fit), and ``fixtures.json`` naming the files and the Pillow version.
+``RGB`` are left out where they equal the samples, and listed under
+``refuses`` where Pillow's ``convert`` raises), the 1280x720 files of
+``image_files.LARGE`` (a progressive JPEG, a lossy WebP, a CMYK JPEG and
+a CCITT Group 4 TIFF, which the card's host cannot write without
+Pillow) with digests of Pillow's arrays (the arrays would not fit), and
+``fixtures.json`` naming the files and the Pillow version.
 """
 
 import json
@@ -20,6 +23,7 @@ import numpy as np
 
 HERE = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(HERE.parents[1]))
+sys.path.insert(0, str(HERE.parents[2]))
 import image_files  # noqa: E402
 
 
@@ -28,9 +32,11 @@ def main():
     from PIL import Image
 
     for old in HERE.iterdir():
-        if old.suffix in (".png", ".bmp", ".tif", ".jpg", ".npz", ".json"):
+        if old.suffix in (".png", ".bmp", ".tif", ".jpg", ".npz", ".json",
+                          ".pnm", ".pgm", ".ppm", ".pbm", ".pfm", ".gif",
+                          ".webp"):
             old.unlink()
-    files, arrays = {}, {}
+    files, arrays, refuses = {}, {}, {}
     for name in sorted(image_files.CATALOGUE):
         ext, data = image_files.make(name)
         path = HERE / f"{name}{ext}"
@@ -40,21 +46,27 @@ def main():
         samples = np.asarray(im)
         arrays[f"{name}/samples"] = samples
         for mode in ("L", "RGB"):
-            a = np.asarray(im.convert(mode))
+            try:
+                a = np.asarray(im.convert(mode))
+            except ValueError:
+                refuses.setdefault(name, []).append(mode)
+                continue
             if not (a.dtype == samples.dtype and a.shape == samples.shape
                     and np.array_equal(a, samples)):
                 arrays[f"{name}/{mode}"] = a
     np.savez_compressed(HERE / "pillow.npz", **arrays)
-    big = HERE / "jpg-progressive-1280x720.jpg"
-    big.write_bytes(image_files.large_progressive_jpeg())
-    im = Image.open(big)
-    large = {"jpg-progressive-1280x720": {
-        "file": big.name,
-        "samples": image_files.digest(np.asarray(im)),
-        "L": image_files.digest(np.asarray(im.convert("L")))}}
+    large = {}
+    for name, (ext, make) in image_files.LARGE.items():
+        big = HERE / f"{name}{ext}"
+        big.write_bytes(make())
+        im = Image.open(big)
+        large[name] = {
+            "file": big.name,
+            "samples": image_files.digest(np.asarray(im)),
+            "L": image_files.digest(np.asarray(im.convert("L")))}
     (HERE / "fixtures.json").write_text(json.dumps(
-        {"pillow": PIL.__version__, "files": files, "large": large},
-        indent=1, sort_keys=True) + "\n")
+        {"pillow": PIL.__version__, "files": files, "large": large,
+         "refuses": refuses}, indent=1, sort_keys=True) + "\n")
 
 
 if __name__ == "__main__":

@@ -180,7 +180,7 @@ def test_formerly_refused_now_read(tmp_path, what):
 
 
 def _refused(tmp_path, what):
-    """Formats the port still refuses, each as Pillow writes it (or, for
+    """Formats the port once refused, each as Pillow writes it (or, for
     arithmetic coding, Pillow's JPEG with its SOF0 marker made SOF9)."""
     img = _image(6)
     if what == "GIF":
@@ -204,8 +204,14 @@ def _refused(tmp_path, what):
 
 @pytest.mark.parametrize("what", ["GIF", "WebP", "CMYK", "arithmetic"])
 def test_unsupported_raises(tmp_path, what):
-    with pytest.raises(ValueError, match=what):
-        imgio.imread(_refused(tmp_path, what))
+    """GIF, WebP, CMYK JPEG and arithmetic-coded JPEG (here Huffman-coded
+    data under an SOF9 header, which libjpeg-turbo's arithmetic decoder
+    reads all the same), once refused, now read as the JAX package reads
+    them."""
+    path = _refused(tmp_path, what)
+    for gray in (False, True):
+        np.testing.assert_array_equal(imgio.imread(path, grayscale=gray),
+                                      jio.imread(path, grayscale=gray))
 
 
 def test_unsupported_extension(tmp_path):

@@ -71,9 +71,10 @@ def test_directory_and_single_file(tmp_path, rng):
 
 
 def test_unreadable_file_is_a_driver_error(tmp_path, rng):
-    """A GIF: Pillow reads it, the port's imgio refuses it, and the grab
-    thread's error surfaces from get() instead of giving no frame."""
-    p = str(tmp_path / "f.gif")
+    """A TGA file (a format outside the port's: ROADMAP A.3): Pillow reads
+    it, the port's imgio refuses it, and the grab thread's error
+    surfaces from get() instead of giving no frame."""
+    p = str(tmp_path / "f.tga")
     Image.fromarray(rng.integers(0, 255, (8, 10, 3), np.uint8)).save(p)
     cap = utils.Capture([p])
     cap._max_consecutive_errors = 3
