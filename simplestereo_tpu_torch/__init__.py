@@ -24,7 +24,15 @@ matchers over several cards on ``torch.distributed``.
 
 This package imports ``torch``, ``numpy`` and ``scipy`` and never ``jax``
 or Pillow; ``matplotlib`` only when an FTP debug plot is asked for.
+
+The import itself is timed, from this file's first statement to its
+last, and kept as the set-up span ``"import"`` of
+:func:`.profiling.setup_spans`.
 """
+
+from time import perf_counter as _perf_counter
+
+_import_start = _perf_counter()
 
 __version__ = "0.1.0"
 
@@ -49,6 +57,9 @@ from . import videoio
 from . import v4l2
 from . import profiling
 from ._device import resolve_device
+
+profiling._setup_spans.append(("import", _import_start, _perf_counter()))
+del _perf_counter, _import_start
 
 __all__ = [
     "StereoRig",

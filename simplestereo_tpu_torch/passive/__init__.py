@@ -14,10 +14,9 @@ post-filters: the median (:mod:`.postfilter`), the WLS smoother
 """
 
 import numpy as np
-import torch
 
 from .._device import resolve_device
-from ..profiling import annotate
+from ._entry import run_numpy
 from .lab import bgr_to_lab
 from .asw_ref import asw_disparity_ref, occlusion_fill
 from .asw_cuda import asw_disparity, asw_disparity_batch
@@ -90,7 +89,8 @@ class StereoASW:
         if img1.ndim != 3 or img1.shape[2] != 3 or img1.shape != img2.shape:
             raise ValueError(
                 "Images must be 3-channel BGR with identical shapes!")
-        return self._run(asw_disparity, img1, img2)
+        return run_numpy(asw_disparity, img1, img2, self.device,
+                         **self._kwargs())
 
     def computeBatch(self, imgs1, imgs2):
         """Batched :meth:`compute`: (B, H, W, 3) numpy pairs -> (B, H, W)
@@ -102,20 +102,8 @@ class StereoASW:
                 or imgs1.shape != imgs2.shape:
             raise ValueError(
                 "Batches must be (B, H, W, 3) BGR with identical shapes!")
-        return self._run(asw_disparity_batch, imgs1, imgs2)
-
-    def _run(self, fn, imgs1, imgs2):
-        """numpy in, ``fn`` on the device, numpy out, each step in a
-        :func:`..profiling.annotate` range (``upload``, ``match``,
-        ``readback``) for the profiler's timeline. ``match`` covers the
-        launches; the readback waits for the kernel."""
-        with annotate("upload"):
-            t1 = torch.tensor(imgs1, device=self.device)
-            t2 = torch.tensor(imgs2, device=self.device)
-        with annotate("match"):
-            out = fn(t1, t2, **self._kwargs())
-        with annotate("readback"):
-            return out.cpu().numpy()
+        return run_numpy(asw_disparity_batch, imgs1, imgs2, self.device,
+                         **self._kwargs())
 
 
 __all__ = [

@@ -22,6 +22,9 @@ Pipeline, per frame stack:
 3. :func:`_finish`: empty candidate range, left-right check, occlusion
    fill and the equiangular sub-pixel fit, in plain PyTorch.
 
+Steps 1 and 3 run in the spans ``asw.planes`` and ``asw.finish``
+(:class:`..profiling.annotate`).
+
 A candidate whose matched column leaves ``[0, W-1]`` costs ``inf`` in both
 directions (see :mod:`.asw_ref` for where that differs from the JAX
 package at negative ``min_disp``).
@@ -31,6 +34,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import _build
+from ..profiling import annotate
 from .asw_ref import _cost_volume, lr_check, occlusion_fill  # noqa: F401
 from .lab import bgr_to_lab
 
@@ -392,16 +396,18 @@ def asw_disparity_batch(imgs1, imgs2, win_size=35, max_disp=16, min_disp=0,
     if h_out < 1:
         raise ValueError(f"context mode needs more than 2 * (win_size // 2)"
                          f" = {H - h_out} rows, got {H}")
-    planes = _build_planes(imgs1, imgs2, win_size, min_disp, max_disp,
-                           row_valid=row_valid, context=bool(context))
+    with annotate("asw.planes"):
+        planes = _build_planes(imgs1, imgs2, win_size, min_disp, max_disp,
+                               row_valid=row_valid, context=bool(context))
     _, dispL, dispR, csub = _asw_pass(
         planes, H=h_out, W=W, win_size=win_size, min_disp=min_disp,
         max_disp=max_disp, gamma_c=float(gamma_c), gamma_p=float(gamma_p),
         step=int(step), consistent=bool(consistent),
         subpixel=bool(subpixel), context=bool(context))
-    return _finish(dispL, dispR, csub, W=W, min_disp=min_disp,
-                   max_disp=max_disp, consistent=bool(consistent),
-                   subpixel=bool(subpixel))
+    with annotate("asw.finish"):
+        return _finish(dispL, dispR, csub, W=W, min_disp=min_disp,
+                       max_disp=max_disp, consistent=bool(consistent),
+                       subpixel=bool(subpixel))
 
 
 def asw_disparity(img1, img2, win_size=35, max_disp=16, min_disp=0,

@@ -21,6 +21,9 @@ per-frame results bit for bit.
   left-right check from the same path sum, int16 (:func:`_sgm_post`);
   then, on the host, :func:`filter_speckles`.
 
+The cost (gray included) and the post run in the spans ``sgm.cost`` and
+``sgm.post`` (:class:`..profiling.annotate`).
+
 Every step does the JAX function's operations in its order, so on the CPU
 the costs and the post are bit-equal to the JAX package's. The census
 Hamming distance is the one place where the means differ: PyTorch has no
@@ -32,6 +35,8 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
+from ..profiling import annotate
+from ._entry import run_numpy
 from .sgm_cuda import aggregate
 
 INVALID_SHIFT = 4  # output = disparity * 16 (OpenCV DISP_SHIFT convention)
@@ -292,16 +297,18 @@ def _sgm_disparity_batch(imgs1, imgs2, *, min_disp, num_disp, block_size,
     stacks' device. The frame axis is written out through every stage; the
     aggregation is one launch set for the whole stack (the CUDA kernel for
     a CUDA stack, the twin for a CPU one)."""
-    C = _cost_from_gray(
-        _gray_frames(imgs1), _gray_frames(imgs2), min_disp=min_disp,
-        num_disp=num_disp, block_size=block_size,
-        prefilter_cap=prefilter_cap, cost_method=cost_method,
-        census_window=census_window)
+    with annotate("sgm.cost"):
+        C = _cost_from_gray(
+            _gray_frames(imgs1), _gray_frames(imgs2), min_disp=min_disp,
+            num_disp=num_disp, block_size=block_size,
+            prefilter_cap=prefilter_cap, cost_method=cost_method,
+            census_window=census_window)
     S = aggregate(C.contiguous(), P1, P2, paths)
     del C
-    return _sgm_post(S, min_disp=min_disp, num_disp=num_disp,
-                     uniqueness=uniqueness, disp12_max_diff=disp12_max_diff,
-                     subpixel=subpixel)
+    with annotate("sgm.post"):
+        return _sgm_post(S, min_disp=min_disp, num_disp=num_disp,
+                         uniqueness=uniqueness,
+                         disp12_max_diff=disp12_max_diff, subpixel=subpixel)
 
 
 def _sgm_disparity(img1, img2, *, min_disp, num_disp, block_size, P1, P2,
@@ -406,20 +413,21 @@ class StereoSGM:
         pair, referred to img1. Numpy arrays run on the matcher's device
         and give numpy; tensors run on img1's device and give a tensor
         there."""
-        is_tensor = isinstance(img1, torch.Tensor)
-        if is_tensor:
-            t1, t2 = img1, torch.as_tensor(img2, device=img1.device)
-        else:
-            t1 = torch.tensor(np.ascontiguousarray(img1), device=self.device)
-            t2 = torch.tensor(np.ascontiguousarray(img2), device=self.device)
-        if t1.shape != t2.shape or t1.dim() not in (2, 3):
-            raise ValueError("Images must be (H, W) or (H, W, 3) with "
-                             "identical shapes!")
-        out = _sgm_disparity(t1, t2, **self._kwargs(subpixel))
+        kwargs = self._kwargs(subpixel)
+        if not isinstance(img1, torch.Tensor):
+            img1 = np.ascontiguousarray(img1)
+            img2 = np.ascontiguousarray(img2)
+            _check_pair(img1.shape, img2.shape)
+            out = run_numpy(_sgm_disparity, img1, img2, self.device, **kwargs)
+            return out if self.speckleWindowSize == 0 else self._speckles(out)
+        img2 = torch.as_tensor(img2, device=img1.device)
+        _check_pair(img1.shape, img2.shape)
+        with annotate("match"):
+            out = _sgm_disparity(img1, img2, **kwargs)
         if self.speckleWindowSize == 0:
-            return out if is_tensor else out.cpu().numpy()
-        host = self._speckles(out.cpu().numpy())
-        return torch.as_tensor(host, device=out.device) if is_tensor else host
+            return out
+        return torch.as_tensor(self._speckles(out.cpu().numpy()),
+                               device=out.device)
 
     def computeBatch(self, imgs1, imgs2, subpixel=True):
         """Batched :meth:`compute`: (B, H, W[, 3]) stacks -> (B, H, W).
@@ -436,13 +444,17 @@ class StereoSGM:
             raise ValueError(
                 "Batches must be (B, H, W) or (B, H, W, 3) stacks with "
                 "identical shapes!")
-        out = _sgm_disparity_batch(
-            torch.tensor(imgs1, device=self.device),
-            torch.tensor(imgs2, device=self.device),
-            **self._kwargs(subpixel)).cpu().numpy()
+        out = run_numpy(_sgm_disparity_batch, imgs1, imgs2, self.device,
+                        **self._kwargs(subpixel))
         if self.speckleWindowSize > 0:
             out = np.stack([self._speckles(o) for o in out])
         return out
+
+
+def _check_pair(shape1, shape2):
+    if shape1 != shape2 or len(shape1) not in (2, 3):
+        raise ValueError("Images must be (H, W) or (H, W, 3) with "
+                         "identical shapes!")
 
 
 # cv2-compatible constructor alias mirroring StereoSGBM_create.

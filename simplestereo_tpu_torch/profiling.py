@@ -9,8 +9,12 @@ Observability for the dense pipelines, the port of
   and, on a CUDA device, CUDA activities) writing a TensorBoard-loadable
   trace (kernel-level timeline, copies, host ranges) and a standalone
   Chrome/Perfetto JSON.
-- :func:`annotate` - labels a host region in the profiler's timeline and,
-  with a card, as an NVTX range for Nsight Systems.
+- :class:`annotate` - a span: labels a host region in the profiler's
+  timeline and, with a card, as an NVTX range for Nsight Systems. While no
+  profiler records it is a flag check (and the NVTX pair with a card): it
+  enters no ``record_function`` and makes no dispatcher call.
+- :func:`setup_spans` - the spans kept in memory that no profiler sees,
+  because none runs then: the package's ``import``.
 - :class:`Throughput` - wall-clock throughput meter; time *full host
   readbacks* of each result inside :meth:`Throughput.measure`, so the time
   covers the device's work and not only its dispatch.
@@ -23,9 +27,16 @@ Example
 ...     with meter.measure(H * W * D / 1e6):
 ...         out = matcher.compute(left, right)   # numpy out: a readback
 >>> print(meter.report())   # {"median_s": ..., "Mpix*disp_per_s": ...}
+
+Spans of the matchers' calls, nested on the calling thread: each
+``compute``/``computeBatch`` of ``StereoASW`` and ``StereoSGM`` opens
+``upload``, ``match`` and ``readback``; inside ``match`` the glue before
+and after the matcher's kernel runs in ``asw.planes`` and ``asw.finish``
+(ASW) or ``sgm.cost`` and ``sgm.post`` (SGM).
 """
 
 import contextlib
+import functools
 import os
 import shutil
 import socket
@@ -49,7 +60,7 @@ def trace(logdir, perfetto=True, *, device="cuda"):
     TensorBoard's profiler plugin loads it (``tensorboard --logdir
     <logdir>``); with ``perfetto=True`` (default) also ``logdir/``
     :data:`PERFETTO_FILE`, the same events as a standalone JSON for
-    ui.perfetto.dev or chrome://tracing. :func:`annotate` ranges are
+    ui.perfetto.dev or chrome://tracing. :class:`annotate` ranges are
     recorded. ``device`` decides the activities: CUDA ones for a CUDA
     device, which raises without a card, as the matchers do.
 
@@ -73,20 +84,58 @@ def trace(logdir, perfetto=True, *, device="cuda"):
         shutil.copyfile(path, os.path.join(str(logdir), PERFETTO_FILE))
 
 
-@contextlib.contextmanager
-def annotate(name):
-    """Label the enclosed host code region in profiler timelines
-    (``torch.profiler.record_function``) and, with a card, as an NVTX
-    range."""
-    with torch.profiler.record_function(name):
-        if not torch.cuda.is_available():
-            yield
-            return
-        torch.cuda.nvtx.range_push(name)
-        try:
-            yield
-        finally:
+@functools.cache
+def _nvtx():
+    """Whether spans also push NVTX ranges: decided once, at the first
+    span, as whether a card is present."""
+    return torch.cuda.is_available()
+
+
+class annotate:
+    """Span: ``with annotate(name):`` labels the enclosed host code region
+    as a ``torch.profiler.record_function`` range while a profiler
+    records on this thread, and, with a card, always as an NVTX range for
+    Nsight Systems. Spans nest: the enclosing span is the parent.
+
+    While no profiler records, entering and leaving costs one flag check
+    (``torch._C._autograd._profiler_enabled``), plus the NVTX push and pop
+    with a card: no ``record_function`` is made, so no dispatcher call and
+    no allocation.
+    """
+
+    __slots__ = ("name", "_range")
+
+    def __init__(self, name):
+        self.name = name
+        self._range = None
+
+    def __enter__(self):
+        if torch._C._autograd._profiler_enabled():
+            self._range = torch.profiler.record_function(self.name)
+            self._range.__enter__()
+        if _nvtx():
+            torch.cuda.nvtx.range_push(self.name)
+
+    def __exit__(self, *exc):
+        if _nvtx():
             torch.cuda.nvtx.range_pop()
+        if self._range is not None:
+            self._range.__exit__(*exc)
+            self._range = None
+
+
+# Finished set-up spans, (name, start, end) in time.perf_counter seconds.
+_setup_spans = []
+
+
+def setup_spans():
+    """Set-up spans kept in memory: ``[(name, start_s, end_s)]`` on
+    ``time.perf_counter``'s clock. Today one, ``"import"``: the package's
+    ``__init__`` from its first statement to its last, which holds
+    ``import torch`` unless the caller imported it first. No profiler runs
+    while the package is imported, so these spans are in no profiler
+    trace."""
+    return list(_setup_spans)
 
 
 class Throughput:
@@ -137,4 +186,4 @@ def device_memory():
     return out
 
 
-__all__ = ["trace", "annotate", "Throughput", "device_memory"]
+__all__ = ["trace", "annotate", "setup_spans", "Throughput", "device_memory"]
