@@ -18,7 +18,9 @@ all started together) and drives the port's main paths:
   ``computeBatch`` in the Tsukuba-size census configuration at 384x288 and
   the full-width BT row at 1280x720 with D = 128 on the same synthetic
   pairs, and times kernel (each mode, and the first version), twin and
-  ``compute()``;
+  ``compute()``; holds the census kernels ``torch.equal`` to their twin
+  at the census main path's shape and the benchmark's (720p, D = 96, one
+  frame and 8), counts their calls on the main path and times both;
 - GSW: checks the support-weight kernel against its twin on option cases
   (SD, mirrored consistent stack, step, D > 16, negative min_disp, win 1,
   D = 1, normalize, an MI volume, B = 2, a window too large for shared
@@ -495,7 +497,9 @@ def profile_ms(fn, inputs, top=3):
 
 def sgm_phases(dev, card):
     """Phases 7-10: the SGM kernel against its twin, the SGM main path in
-    both configurations, and times. Returns the kernel's JSON record."""
+    both configurations, times, and the census kernels against their twin
+    at the main path's shapes. Returns the JSON records of K2 and of the
+    census kernels."""
     from simplestereo_tpu_torch.passive import StereoSGM, sgm, sgm_cuda
 
     def args(m, *keys):
@@ -571,18 +575,25 @@ def sgm_phases(dev, card):
           f"launch count +1 per call | {card}")
 
     # ---- phases 8-9: the main path --------------------------------------
-    launches_main = None
+    launches_main = census_main = None
     e2e = {}
     for phase, ((h, w), cfg) in zip((8, 9), SGM_MAIN):
         m = StereoSGM(device="cuda", **cfg)
         left, right = pair(h, w)
         lefts = np.stack([np.roll(left, i, axis=0) for i in range(8)])
         rights = np.stack([np.roll(right, i, axis=0) for i in range(8)])
-        sgm_cuda.launches = 0
+        sgm_cuda.launches = sgm_cuda.census_launches = 0
         d = m.compute(left, right)
         batch = m.computeBatch(lefts, rights)
         per = [m.compute(lefts[i], rights[i]) for i in range(8)]
         n = sgm_cuda.launches
+        n_census = sgm_cuda.census_launches
+        census = cfg.get("costMethod") == "census"
+        check(n_census == (10 if census else 0), f"SGM {h}x{w}: "
+              f"{n_census} census kernel calls, expected "
+              f"{10 if census else 0}")
+        if census:
+            census_main = n_census
         check(d.shape == (h, w) and d.dtype == np.int16, f"SGM {h}x{w}: "
               "shape")
         interior = d[8:-8, 16:-8].astype(np.float32) / 16.0
@@ -601,7 +612,8 @@ def sgm_phases(dev, card):
         D = cfg["numDisparities"]
         print(f"phase {phase} SGM main path {w}x{h} D={D} "
               f"{cfg.get('costMethod', 'bt')}: {frac:.2%} of interior within "
-              f"0.5 px of {SHIFT}, launches {n}, batch of 8 bit-equal to "
+              f"0.5 px of {SHIFT}, launches {n} (census kernel calls "
+              f"{n_census}), batch of 8 bit-equal to "
               f"per-frame, compute() median {e2e[(h, w)]:.2f} ms/frame end "
               f"to end (host clock, n={n_e2e}) | {card}")
         torch.cuda.empty_cache()
@@ -711,13 +723,70 @@ def sgm_phases(dev, card):
     print("phase 10c SGM compute() profile (torch.profiler, 4 calls each) | "
           + " | ".join(parts) + f" | {card}")
 
+    # ---- phase 10d: the census kernels at the main path's shapes --------
+    # C of the census phases above, and of the benchmark's sgm_lawn720
+    # cells (720p, candidates 1..96, window 7, block 3; one frame and 8).
+    def grays(h, w, B, seed):
+        left, right = pair(h, w, seed)
+        return tuple(sgm._gray_frames(torch.tensor(np.stack(
+            [np.roll(im, i, axis=0) for i in range(B)]), device=dev))
+            for im in (left, right))
+
+    def census(g, md, D, win, k):
+        return sgm_cuda.census_cost(*g, md, D, win, k)
+
+    def twin(g, md, D, win, k):
+        return sgm._box_sum(sgm._census_cost(*g, md, D, win), k)
+
+    c0 = SGM_MAIN[0][1]
+    shapes = [((288, 384), 1, c0["minDisparity"], c0["numDisparities"],
+               c0["censusWindow"], c0["blockSize"]),
+              ((720, 1280), 1, 1, 96, 7, 3), ((720, 1280), 8, 1, 96, 7, 3)]
+    sgm_cuda.census_launches = 0
+    for (h, w), B, *kw in shapes:
+        g = grays(h, w, B, SEED + 11)
+        got, want = census(g, *kw), twin(g, *kw)
+        check(torch.equal(got, want), f"census kernels {w}x{h} B={B} "
+              f"{kw}: C differs from the twin, max abs err "
+              f"{(got - want).abs().max().item():.3g}")
+        del g, got, want
+        torch.cuda.empty_cache()
+    check(sgm_cuda.census_launches == len(shapes),
+          f"census kernels: {sgm_cuda.census_launches} calls counted, "
+          f"expected {len(shapes)}")
+    cen = {}
+    for B, n in ((1, 7), (8, 4)):
+        ins = [grays(720, 1280, B, SEED + 20 + i) for i in range(n)]
+        k_ms = cuda_ms(lambda g: census(g, 1, 96, 7, 3), ins)[0]
+        p_ms = cuda_ms(lambda g: twin(g, 1, 96, 7, 3), ins[:3])[0]
+        cen[B] = (k_ms, p_ms, bound(0, B * 720 * 1280 * 96 * 4))
+        del ins
+        torch.cuda.empty_cache()
+    (k1, p1, (b1, by1)), (k8, p8, (b8, _)) = cen[1], cen[8]
+    print(f"phase 10d SGM census kernels vs twin: C torch.equal at 384x288 "
+          f"D=16 window 7 block 3 and 1280x720 D=96 (candidates 1..96) "
+          f"window 7 block 3, one frame and 8, census_launches +1 a call "
+          f"and {census_main} on phase 8's main path; 720p one frame "
+          f"{k1:.3f} ms (twin {p1:.2f} ms, bound {b1:.4f} ms, {by1}: C "
+          f"written once, {k1 / b1:.2f}x), 8 frames {k8:.3f} ms "
+          f"({k8 / 8:.3f} a frame; twin {p8:.2f} ms, bound {b8:.4f} ms, "
+          f"{k8 / b8:.2f}x) | {card}")
+
     k_ms, p_ms, err, (bound_ms, bound_by) = times[SGM_MAIN[0][0]]
-    return {"name": "sgm_aggregate", "route": "cuda",
-            "source": "simplestereo_tpu_torch/csrc/sgm_kernel.cu",
-            "replaces": "simplestereo_tpu/passive/sgm_pallas.py:72",
-            "launches": launches_main, "max_abs_err": err,
-            "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": None}
+    return ({"name": "sgm_aggregate", "route": "cuda",
+             "source": "simplestereo_tpu_torch/csrc/sgm_kernel.cu",
+             "replaces": "simplestereo_tpu/passive/sgm_pallas.py:72",
+             "launches": launches_main, "max_abs_err": err,
+             "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms,
+             "bound_by": bound_by, "library_ms": None},
+            {"name": "sgm_census_cost", "route": "cuda",
+             "source": "simplestereo_tpu_torch/csrc/sgm_kernel.cu",
+             "replaces": "simplestereo_tpu/passive/sgm.py:127 (XLA-fused, "
+                         "no TPU kernel)",
+             "launches": census_main, "max_abs_err": 0.0,
+             "ms": k1, "plain_ms": p1, "bound_ms": b1, "bound_by": by1,
+             "ms_8_frames": k8, "plain_ms_8_frames": p8,
+             "bound_ms_8_frames": b8, "library_ms": None})
 
 
 def gsw_phases(dev, card):
@@ -3786,7 +3855,7 @@ def main():
         walls[name] = time.perf_counter() - t
         return out
 
-    sgm_entry = timed("7-10", sgm_phases, dev, card)
+    sgm_entry, census_entry = timed("7-10", sgm_phases, dev, card)
     gsw_entry = timed("11-14", gsw_phases, dev, card)
     rotate_entry = timed("15", rotate_phase, dev, card)
     pts, img = timed("16", pipeline_phase, dev, card)
@@ -3810,9 +3879,9 @@ def main():
           + ", ".join(f"{k} {v:.1f}" for k, v in walls.items())
           + f"; total {time.perf_counter() - start:.1f} | {card}")
 
-    print(json.dumps({"kernels": [asw_entry, sgm_entry, carry_entry,
-                                  gsw_entry, rotate_entry, iir_entry,
-                                  s2_entry]}))
+    print(json.dumps({"kernels": [asw_entry, sgm_entry, census_entry,
+                                  carry_entry, gsw_entry, rotate_entry,
+                                  iir_entry, s2_entry]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

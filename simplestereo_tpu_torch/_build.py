@@ -14,7 +14,8 @@ The sources, one per TPU kernel of the JAX package:
 
 - ``asw_kernel.cu``: ASW cost + select (K1, ``asw_pallas._asw_kernel``);
 - ``sgm_kernel.cu``: SGM path aggregation (K2,
-  ``sgm_pallas._sgm_scan_kernel``);
+  ``sgm_pallas._sgm_scan_kernel``), and the census cost volume it reads
+  (no TPU kernel: XLA fuses the JAX package's);
 - ``gsw_kernel.cu``: GSW volume + support-weight aggregation (K3,
   ``gsw_pallas._gsw_kernel``);
 - ``rotate_kernel.cu``: per-plane dynamic roll (K4, the
@@ -88,6 +89,9 @@ _SIGNATURES = {
                      + [_I] * 4 + [_P], _I),
         # L, S, vol, stride, nbuf, device, stream
         "sgm_sum": ([_P] * 2 + [_L] * 2 + [_I] * 2 + [_P], _I),
+        # gray1, gray2, rows, codes, C, B, H, W, min_disp, D, win, block,
+        # device, stream
+        "sgm_census_cost": ([_P] * 5 + [_I] * 8 + [_P], _I),
         "sgm_error_string": ([_I], ctypes.c_char_p),
     },
     "gsw_kernel": {

@@ -550,6 +550,328 @@ extern "C" int sgm_sum(const void* L, void* S, long long vol,
                          vol, stride, nbuf);
 }
 
+// ---------------------------------------------------------------------------
+// The census cost volume that the kernels above read (sgm_census_cost).
+//
+// Replaces no TPU kernel: the JAX package leaves the census cost to XLA,
+// which fuses it. The port's torch code for it (sgm.py: _census_words,
+// _census_cost, _edge_fill_rows, _box_sum) is its twin, and ran as ~500
+// launches over int64 volumes. For (B, H, W) float32 gray images L and R
+// it computes
+//     C(y, x, d) = sum over the k x k box of
+//                  popcount(code_L(cy, cx) ^ code_R(cy, clamp(cx - dv)))
+// with cx the box's columns clamped to the image and cy its rows clamped
+// to [row_lo, row_hi] (the image's rows, or the valid rows of a row-tiled
+// block: _box_sum's edge pad over _edge_fill_rows), dv = min_disp + d
+// (_shift_edge's edge fill), and bit j of a pixel's code set iff its j-th
+// window neighbour (row-major, centre skipped, clamped to the image) is
+// greater than the pixel. Every sum is a whole number of at most
+// 48 * k * k < 2^24 for the blocks the kernel takes (k <= 591), so the
+// float32 C equals the twin's bit for bit in any order of summation.
+//
+// What bounds it: writing C once (354 MB a 1280x720 frame at D = 96, 0.106
+// ms at 3.35 TB/s); the codes are 8 bytes a pixel and read from L2. Then
+// the instructions a cell of C takes, which the design keeps few:
+//   - census_words_kernel: one thread a pixel, the tile and its window
+//     halo staged in shared memory, the window's comparisons unrolled;
+//     both images and all frames in one launch; codes (B, 2, H, W) uint64.
+//   - census_cost_kernel: a block a tile of kCensusTY x kCensusTX pixels
+//     of one frame and a chunk of dc candidates (4 <= dc <= 32). It stages
+//     the left codes of the tile and its box halo, and the right codes of
+//     the same rows over the columns the chunk's shifts reach, rc of the
+//     box's rows at a time (all of them unless the block is large);
+//     computes each Hamming distance once into shared memory (uint8, a
+//     lane a candidate); then a thread takes four candidates: it sums the
+//     box's rows as 16-bit lanes of 32-bit words (two candidates a word:
+//     48 * k < 2^16), then its columns, in the same lanes while
+//     48 * k * k < 2^16 (k <= 35) and a candidate a word above, and
+//     converts to float only at the store, 16 bytes at
+//     once where D % 4 == 0. The entry picks dc and rc so that the shared
+//     memory fits the card (census_smem).
+
+namespace {
+
+constexpr int kCensusTX = 32;        // tile columns
+constexpr int kCensusTY = 8;         // tile rows
+constexpr int kCensusThreads = 256;  // threads a block, both kernels
+constexpr int kCensusNarrowMax = 35;  // largest block: box sums in 16 bits
+constexpr int kCensusBlockMax = 591;  // largest block: box sums below 2^24
+
+__device__ __forceinline__ int clamp_to(int v, int n) {
+  return min(max(v, 0), n - 1);
+}
+
+// Calls f(r, c) for the cells of an nr x nc row-major grid that thread
+// `slot` of `slots` owns (cells slot, slot + slots, ...), without a
+// division a step.
+template <typename F>
+__device__ __forceinline__ void for_cells(int nr, int nc, int slot,
+                                          int slots, F&& f) {
+  const int dr = slots / nc, dcol = slots - dr * nc;
+  int r = slot / nc, c = slot - r * nc;
+  while (r < nr) {
+    f(r, c);
+    c += dcol;
+    r += dr;
+    if (c >= nc) {
+      c -= nc;
+      ++r;
+    }
+  }
+}
+
+// grid (tiles of kCensusTY x kCensusTX pixels, frames, 2 images). The
+// tile and its window halo (clamped to the image) are staged in shared
+// memory; kWin is the census window (3, 5 or 7).
+template <int kWin>
+__global__ void __launch_bounds__(kCensusThreads) census_words_kernel(
+    const float* __restrict__ g1, const float* __restrict__ g2,
+    unsigned long long* __restrict__ codes, int H, int W) {
+  constexpr int p = kWin / 2;
+  constexpr int sh = kCensusTY + 2 * p, sw = kCensusTX + 2 * p;
+  __shared__ float tile[sh][sw];
+  const int tiles_x = (W + kCensusTX - 1) / kCensusTX;
+  const int x0 = (blockIdx.x % tiles_x) * kCensusTX;
+  const int y0 = (blockIdx.x / tiles_x) * kCensusTY;
+  const long long hw = (long long)H * W;
+  const float* g = (blockIdx.z ? g2 : g1) + blockIdx.y * hw;
+  for (int e = threadIdx.x; e < sh * sw; e += kCensusThreads) {
+    const int r = e / sw, c = e - r * sw;
+    tile[r][c] = g[(long long)clamp_to(y0 - p + r, H) * W +
+                   clamp_to(x0 - p + c, W)];
+  }
+  __syncthreads();
+  const int tx = threadIdx.x % kCensusTX, ty = threadIdx.x / kCensusTX;
+  if (x0 + tx >= W || y0 + ty >= H) return;
+  const float c = tile[ty + p][tx + p];
+  unsigned long long code = 0;
+  int k = 0;
+#pragma unroll
+  for (int di = 0; di < kWin; ++di) {
+#pragma unroll
+    for (int dj = 0; dj < kWin; ++dj) {
+      if (di == p && dj == p) continue;
+      code |= (unsigned long long)(tile[ty + di][tx + dj] > c) << k;
+      ++k;
+    }
+  }
+  codes[(blockIdx.y * 2 + blockIdx.z) * hw + (long long)(y0 + ty) * W + x0 +
+        tx] = code;
+}
+
+// Bytes of census_cost_kernel's dynamic shared memory with rc of the box's
+// rows staged at a time and dc candidates a block: left codes (rc x ni),
+// right codes (rc x (ni + dc - 1)), Hamming distances (rc x ni x dc
+// uint8, padded to 16 bytes) and the box's row sums (kCensusTY x ni x dc
+// uint16).
+size_t census_smem(int block, int dc, int rc) {
+  const size_t p = block / 2, ni = kCensusTX + 2 * p;
+  return rc * ni * 8 + rc * (ni + dc - 1) * 8 + (rc * ni * dc + 15) / 16 * 16 +
+         (size_t)kCensusTY * ni * dc * 2;
+}
+
+// grid (tiles of kCensusTY x kCensusTX pixels times chunks of dc
+// candidates, frames); codes (frames, 2, H, W), C (frames, H, W, D).
+// rows: null, or the first and last row the box reads (of every frame).
+// kVec: D % 4 == 0, so a thread's four candidates are one aligned float4
+// of C. kWide: block > kCensusNarrowMax, so the box's columns are summed a
+// candidate a 32-bit word.
+template <bool kVec, bool kWide>
+__global__ void __launch_bounds__(kCensusThreads) census_cost_kernel(
+    const unsigned long long* __restrict__ codes,
+    const int* __restrict__ rows, float* __restrict__ C, int H, int W,
+    int D, int min_disp, int block, int dc_log2, int rc) {
+  extern __shared__ __align__(16) unsigned char census_buf[];
+  const int p = block >> 1;
+  const int dc = 1 << dc_log2;
+  const int nr = kCensusTY + 2 * p;  // the box's rows: the tile's and halo
+  const int ni = kCensusTX + 2 * p;  // staged left columns
+  const int nj = ni + dc - 1;        // staged right columns (row stride)
+  const int tiles_x = (W + kCensusTX - 1) / kCensusTX;
+  const int tiles = tiles_x * ((H + kCensusTY - 1) / kCensusTY);
+  const int tile = blockIdx.x % tiles;
+  const int x0 = (tile % tiles_x) * kCensusTX;
+  const int y0 = (tile / tiles_x) * kCensusTY;
+  const int dc0 = blockIdx.x / tiles * dc;      // the chunk's first candidate
+  const int dv_hi = min_disp + dc0 + dc - 1;    // its largest shift
+  const int cx_lo = clamp_to(x0 - p, W);        // smallest clamped column
+  const int base = cx_lo - dv_hi;               // column of right column 0
+  const int row_lo = rows ? clamp_to(rows[0], H) : 0;
+  const int row_hi = rows ? clamp_to(rows[1], H) : H - 1;
+
+  unsigned long long* Ls = reinterpret_cast<unsigned long long*>(census_buf);
+  unsigned long long* Rs = Ls + rc * ni;
+  unsigned char* hs = reinterpret_cast<unsigned char*>(Rs + rc * nj);
+  uint2* vs = reinterpret_cast<uint2*>(hs + (rc * ni * dc + 15) / 16 * 16);
+
+  const long long hw = (long long)H * W;
+  const unsigned long long* Lg = codes + blockIdx.y * 2 * hw;
+  const unsigned long long* Rg = Lg + hw;
+  // A thread four candidates 4g .. 4g + 3: byte q of word g of a cell's
+  // distances is candidate 4g + q. Row sums are kept two candidates a
+  // word, 16 bits each: .x holds 4g and 4g + 2, .y 4g + 1 and 4g + 3.
+  const int groups = dc >> 2;
+  const int g = threadIdx.x & (groups - 1);
+  const int slot = threadIdx.x >> (dc_log2 - 2);
+  const int slots = blockDim.x >> (dc_log2 - 2);
+  const unsigned* h4 = reinterpret_cast<const unsigned*>(hs);
+
+  // The box's rows r0 .. r0 + n - 1 of the nr (row r is image row
+  // y0 - p + r, clamped): staged, their Hamming distances, and their part
+  // of v(y, i) = h(y, i) + ... + h(y + block - 1, i).
+  const auto rows_part = [&](int r0, int n) {
+    for_cells(n, ni, threadIdx.x, blockDim.x, [&](int r, int i) {
+      const int y = min(max(y0 - p + r0 + r, row_lo), row_hi);
+      Ls[r * ni + i] = Lg[(long long)y * W + clamp_to(x0 - p + i, W)];
+    });
+    for_cells(n, nj, threadIdx.x, blockDim.x, [&](int r, int j) {
+      const int y = min(max(y0 - p + r0 + r, row_lo), row_hi);
+      Rs[r * nj + j] = Rg[(long long)y * W + clamp_to(base + j, W)];
+    });
+    __syncthreads();
+    {  // a lane a candidate d of the chunk
+      const int d = threadIdx.x & (dc - 1);
+      // Hamming distance of staged cell (r, i) at shift dv = dv_hi - (dc
+      // - 1 - d): the right code at column clamp(cx - dv), cx = clamp(x0 -
+      // p + i), is staged right column cx - cx_lo + dc - 1 - d.
+      for_cells(n, ni, threadIdx.x >> dc_log2, blockDim.x >> dc_log2,
+                [&](int r, int i) {
+        const int j = clamp_to(x0 - p + i, W) - cx_lo + dc - 1 - d;
+        hs[(r * ni + i) * dc + d] =
+            (unsigned char)__popcll(Ls[r * ni + i] ^ Rs[r * nj + j]);
+      });
+    }
+    __syncthreads();
+    for_cells(kCensusTY, ni, slot, slots, [&](int y, int i) {
+      uint2* v = vs + (y * ni + i) * groups + g;
+      unsigned even = r0 ? v->x : 0, odd = r0 ? v->y : 0;
+      const unsigned* h = h4 + i * groups + g;
+      for (int t = max(y, r0) - r0, t1 = min(y + block, r0 + n) - r0;
+           t < t1; ++t) {
+        const unsigned w = h[t * ni * groups];
+        even += w & 0x00ff00ffu;
+        odd += (w >> 8) & 0x00ff00ffu;
+      }
+      *v = make_uint2(even, odd);
+    });
+  };
+  if constexpr (kWide) {  // rc of the rows at a time
+    for (int r0 = 0; r0 < nr; r0 += rc) rows_part(r0, min(rc, nr - r0));
+  } else {  // all at once (the entry keeps rc = nr here)
+    rows_part(0, nr);
+  }
+  __syncthreads();
+  // The box's columns, then the store: C(y0 + y, x0 + x, dc0 + 4g + q).
+  const int d4 = dc0 + 4 * g;
+  if (d4 >= D) return;
+  float* Cf = C + blockIdx.y * hw * D + d4;
+  for_cells(kCensusTY, kCensusTX, slot, slots, [&](int y, int x) {
+    if (y0 + y >= H || x0 + x >= W) return;
+    const uint2* v = vs + (y * ni + x) * groups + g;
+    float4 c;
+    if constexpr (kWide) {
+      unsigned s0 = 0, s1 = 0, s2 = 0, s3 = 0;
+      for (int t = 0; t < block; ++t) {
+        const uint2 w = v[t * groups];
+        s0 += w.x & 0xffffu;
+        s1 += w.y & 0xffffu;
+        s2 += w.x >> 16;
+        s3 += w.y >> 16;
+      }
+      c = make_float4(s0, s1, s2, s3);
+    } else {
+      unsigned even = 0, odd = 0;
+      for (int t = 0; t < block; ++t) {
+        const uint2 w = v[t * groups];
+        even += w.x;
+        odd += w.y;
+      }
+      c = make_float4(even & 0xffffu, odd & 0xffffu, even >> 16, odd >> 16);
+    }
+    float* q = Cf + ((long long)(y0 + y) * W + x0 + x) * D;
+    if constexpr (kVec) {
+      *reinterpret_cast<float4*>(q) = c;
+    } else {
+      q[0] = c.x;
+      if (d4 + 1 < D) q[1] = c.y;
+      if (d4 + 2 < D) q[2] = c.z;
+      if (d4 + 3 < D) q[3] = c.w;
+    }
+  });
+}
+
+}  // namespace
+
+// C (B, H, W, D) float32: the box-summed census cost of the (B, H, W)
+// float32 gray stacks gray1 (reference) and gray2 (target), candidates
+// min_disp .. min_disp + D - 1, the box's rows clamped to rows[0] ..
+// rows[1] (int32 on the card; null: the image's); codes: scratch of B * 2
+// * H * W uint64. win 3, 5 or 7; block odd, at most kCensusBlockMax;
+// B <= 65,535; C 16-byte aligned where D % 4 == 0. Candidates a block:
+// the power of two >= D, 4 to 32; where the shared memory would not fit
+// the card, fewer of the box's rows are staged at a time (above
+// kCensusNarrowMax), then fewer candidates.
+extern "C" int sgm_census_cost(const void* gray1, const void* gray2,
+                               const void* rows, void* codes, void* C, int B,
+                               int H, int W, int min_disp, int D, int win,
+                               int block, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (B < 1 || B > 65535 || H < 1 || W < 1 || D < 1 ||
+      (win != 3 && win != 5 && win != 7) || block < 1 ||
+      block > kCensusBlockMax || (block & 1) == 0 ||
+      (D % 4 == 0 && ((uintptr_t)C & 15) != 0))
+    return (int)cudaErrorInvalidValue;
+  int smem_max = 0;
+  err = cudaDeviceGetAttribute(&smem_max,
+                               cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                               device);
+  if (err != cudaSuccess) return (int)err;
+  const bool vec = D % 4 == 0, wide = block > kCensusNarrowMax;
+  int dc_log2 = 2, rc = kCensusTY + block - 1;
+  while (dc_log2 < 5 && (1 << dc_log2) < D) ++dc_log2;
+  size_t smem;  // at most 177,264 bytes for a narrow block (35, dc 32)
+  while ((smem = census_smem(block, 1 << dc_log2, rc)) > (size_t)smem_max) {
+    if (wide && rc > 1)
+      rc = (rc + 1) / 2;
+    else if (dc_log2 > 2)
+      --dc_log2;
+    else
+      return (int)cudaErrorInvalidValue;
+  }
+  const long long tiles = (long long)((H + kCensusTY - 1) / kCensusTY) *
+                          ((W + kCensusTX - 1) / kCensusTX);
+  const long long chunks = (D + (1 << dc_log2) - 1) >> dc_log2;
+  if (tiles * chunks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  using Kernel = void (*)(const unsigned long long*, const int*, float*, int,
+                          int, int, int, int, int, int);
+  const Kernel kernel =
+      vec ? (wide ? census_cost_kernel<true, true>
+                  : census_cost_kernel<true, false>)
+          : (wide ? census_cost_kernel<false, true>
+                  : census_cost_kernel<false, false>);
+  if (smem > 48 * 1024) {
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  unsigned long long* cw = static_cast<unsigned long long*>(codes);
+  const auto words = win == 3   ? census_words_kernel<3>
+                     : win == 5 ? census_words_kernel<5>
+                                : census_words_kernel<7>;
+  words<<<dim3((unsigned)tiles, B, 2), kCensusThreads, 0, s>>>(
+      static_cast<const float*>(gray1), static_cast<const float*>(gray2), cw,
+      H, W);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<dim3((unsigned)(tiles * chunks), B), kCensusThreads, smem, s>>>(
+      cw, static_cast<const int*>(rows), static_cast<float*>(C), H, W, D,
+      min_disp, block, dc_log2, rc);
+  return (int)cudaGetLastError();
+}
+
 extern "C" const char* sgm_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

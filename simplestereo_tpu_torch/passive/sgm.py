@@ -13,7 +13,10 @@ per-frame results bit for bit.
 
 - **Cost**: Birchfield-Tomasi on the clipped x-Sobel prefilter
   (:func:`_bt_cost`), census + Hamming distance (:func:`_census_cost`), or
-  their sum, box-summed over the blockSize window (:func:`_box_sum`).
+  their sum, box-summed over the blockSize window (:func:`_box_sum`). The
+  census cost of CUDA gray images (``"census"``, blockSize up to 591)
+  runs the census kernels instead, :func:`.sgm_cuda.census_cost`, whose
+  twin is the torch code.
 - **Aggregation**: :func:`.sgm_cuda.aggregate`, the hand-written CUDA
   kernel for a CUDA tensor and the plain twin :func:`.sgm_cuda._aggregate`
   for a CPU one.
@@ -27,8 +30,11 @@ The cost (gray included) and the post run in the spans ``sgm.cost`` and
 Every step does the JAX function's operations in its order, so on the CPU
 the costs and the post are bit-equal to the JAX package's. The census
 Hamming distance is the one place where the means differ: PyTorch has no
-popcount and no uint32 shift on the CPU, so the census code is one int64
-word (48 bits at most) and its bits are counted with shifts and masks.
+popcount and no uint32 shift on the CPU, so the twin's census code is one
+int64 word (48 bits at most) and its bits are counted with shifts and
+masks (a SWAR popcount); the kernels count them with the card's popcount.
+Every census cost is a whole number below 2**24, so both give the same
+float32 volume bit for bit.
 """
 
 import numpy as np
@@ -37,7 +43,7 @@ import torch
 from .._device import resolve_device
 from ..profiling import annotate
 from ._entry import run_numpy
-from .sgm_cuda import aggregate
+from .sgm_cuda import CENSUS_BLOCK_MAX, aggregate, census_cost
 
 INVALID_SHIFT = 4  # output = disparity * 16 (OpenCV DISP_SHIFT convention)
 
@@ -176,18 +182,33 @@ def _edge_fill_rows(ext, valid, row_axis=0):
     """Replace invalid rows (beyond the true image boundary in a
     row-sharded halo block) with the nearest valid row along ``row_axis``
     — the sharded twin of ``mode="edge"`` padding."""
-    n = valid.shape[0]
-    v = valid.to(torch.uint8)
-    first = torch.argmax(v)
-    last = n - 1 - torch.argmax(v.flip(0))
-    idx = torch.arange(n, device=ext.device).clamp(first, last)
+    first, last = _valid_range(valid)
+    idx = torch.arange(valid.shape[0], device=ext.device).clamp(first, last)
     return ext.index_select(row_axis, idx)
+
+
+def _valid_range(valid):
+    """First and last True row of a bool row mask, as 0-dim tensors on its
+    device (0 and n - 1 where no row is True)."""
+    v = valid.to(torch.uint8)
+    return torch.argmax(v), valid.shape[0] - 1 - torch.argmax(v.flip(0))
 
 
 def _cost_from_gray(gray1, gray2, *, min_disp, num_disp, block_size,
                     prefilter_cap, cost_method="bt", census_window=5,
                     row_valid=None):
-    """:func:`_sgm_cost` of (..., H, W) float32 gray images."""
+    """:func:`_sgm_cost` of (..., H, W) float32 gray images.
+
+    ``"census"`` on CUDA images runs the census kernels
+    (:func:`.sgm_cuda.census_cost`, ``row_valid`` as the rows its box
+    reads) up to their largest block, ``CENSUS_BLOCK_MAX``; every other
+    case the torch code below, their twin."""
+    if (cost_method == "census" and gray1.device.type == "cuda"
+            and block_size <= CENSUS_BLOCK_MAX):
+        rows = (None if row_valid is None else
+                torch.stack(_valid_range(row_valid)).to(torch.int32))
+        return census_cost(gray1, gray2, min_disp, num_disp, census_window,
+                           block_size, rows)
     C = None
     if cost_method in ("bt", "bt+census"):
         g1 = _xsobel(gray1, prefilter_cap)

@@ -29,7 +29,15 @@ order above), the vertical and diagonal ones from a carried row
 (``carry``, the row before the tile's first row; :func:`carry_of` cuts it
 from the tile before). :func:`sum_paths` then sums the buffers in that
 order.
+
+The census cost volume C that the aggregation reads comes from the same
+library: :func:`census_cost` launches ``census_words_kernel`` and
+``census_cost_kernel`` (``csrc/sgm_kernel.cu``), whose twin is the torch
+code of :mod:`.sgm` (``_census_cost``, ``_edge_fill_rows`` and
+``_box_sum``).
 """
+
+import math
 
 import torch
 
@@ -52,6 +60,15 @@ WARPS = 4  # warps a block (kWarps)
 # whole; 1280x720 at D = 128 needs 3.8 GB a frame, one frame a launch.
 WORKSPACE_CAP = 4 << 30
 MODES = ("sequential", "concurrent", "generic")
+
+# Calls of census_cost (each launches the census kernels: a words and a
+# cost launch, or one pair a piece of 65,535 frames).
+census_launches = 0
+
+CENSUS_WINDOWS = (3, 5, 7)
+# The largest block the census kernels take (kCensusBlockMax): a box sum,
+# at most 48 k * k, stays below 2**24, so exact in float32 in any order.
+CENSUS_BLOCK_MAX = 591
 
 
 def _plan(B, H, W, D, paths, mode=None):
@@ -382,3 +399,67 @@ def sum_paths(L):
                            + lib.sgm_error_string(err).decode())
     launches += 1
     return S
+
+
+def census_cost(gray1, gray2, min_disp, num_disp, census_window,
+                block_size, rows=None):
+    """Box-summed census Hamming cost of two (..., H, W) float32 gray
+    stacks on a CUDA card: (..., H, W, num_disp) float32, contiguous, D
+    innermost, equal bit for bit to ``sgm._box_sum(sgm._census_cost(gray1,
+    gray2, min_disp, num_disp, census_window), block_size)``.
+
+    ``rows``: None, or a (2,) int32 tensor on the card holding the first
+    and last row the box may read; a row outside them reads the nearest of
+    the two, as ``sgm._edge_fill_rows`` fills the cost's rows outside a
+    row-tiled block's valid rows.
+
+    Launches the census kernels and adds one to ``census_launches``.
+    Raises ValueError for tensors off the card, of other shapes or types,
+    a window other than 3, 5 or 7, and a block size that is even or above
+    ``CENSUS_BLOCK_MAX``.
+    """
+    global census_launches
+    if gray1.shape != gray2.shape or gray1.dim() < 2 or gray1.numel() == 0:
+        raise ValueError(f"gray images must be two non-empty (..., H, W) "
+                         f"tensors of one shape, got {tuple(gray1.shape)} "
+                         f"and {tuple(gray2.shape)}")
+    if gray1.dtype != torch.float32 or gray2.dtype != torch.float32:
+        raise ValueError(f"gray images must be float32, got {gray1.dtype} "
+                         f"and {gray2.dtype}")
+    if census_window not in CENSUS_WINDOWS:
+        raise ValueError(f"census window must be 3, 5 or 7, got "
+                         f"{census_window}")
+    if not (1 <= block_size <= CENSUS_BLOCK_MAX and block_size % 2 == 1
+            and num_disp >= 1):
+        raise ValueError(f"block size must be odd, 1 to {CENSUS_BLOCK_MAX}, "
+                         f"and num_disp positive, got {block_size}, "
+                         f"{num_disp}")
+    dev = gray1.device
+    if dev.type != "cuda" or gray2.device != dev:
+        raise ValueError(f"the census kernels take CUDA tensors on one card, "
+                         f"got {dev} and {gray2.device}")
+    if rows is not None and (rows.shape != (2,) or rows.dtype != torch.int32
+                             or rows.device != dev):
+        raise ValueError(f"rows must be a (2,) int32 tensor on {dev}, got "
+                         f"{tuple(rows.shape)} {rows.dtype} on {rows.device}")
+    lead, (H, W) = gray1.shape[:-2], gray1.shape[-2:]
+    B, D = math.prod(lead), num_disp
+    g1 = gray1.reshape(B, H, W).contiguous()
+    g2 = gray2.reshape(B, H, W).contiguous()
+    codes = torch.empty((B, 2, H, W), dtype=torch.int64, device=dev)
+    C = torch.empty((B, H, W, D), dtype=torch.float32, device=dev)
+    lib = _build.load_library("sgm_kernel")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    frame = H * W
+    for b0, b1 in _build.frame_pieces(B, _build.GRID_YZ_MAX):
+        err = lib.sgm_census_cost(
+            g1.data_ptr() + b0 * frame * 4, g2.data_ptr() + b0 * frame * 4,
+            None if rows is None else rows.data_ptr(),
+            codes.data_ptr() + b0 * 2 * frame * 8,
+            C.data_ptr() + b0 * frame * D * 4, b1 - b0, H, W, min_disp, D,
+            census_window, block_size, dev.index, stream)
+        if err != 0:
+            raise RuntimeError("census kernel launch failed: "
+                               + lib.sgm_error_string(err).decode())
+    census_launches += 1
+    return C.reshape(*lead, H, W, D)
