@@ -21,6 +21,10 @@ all started together) and drives the port's main paths:
   ``compute()``; holds the census kernels ``torch.equal`` to their twin
   at the census main path's shape and the benchmark's (720p, D = 96, one
   frame and 8), counts their calls on the main path and times both;
+- the speckle filter: holds its kernels ``torch.equal`` to the host
+  filter on example 011's BT SGM maps at 1280x720 (one frame and 8, and
+  through ``StereoSGM(speckleWindowSize=120)``), counts their calls and
+  times them, lone and queued, beside the bound;
 - GSW: checks the support-weight kernel against its twin on option cases
   (SD, mirrored consistent stack, step, D > 16, negative min_disp, win 1,
   D = 1, normalize, an MI volume, B = 2, a window too large for shared
@@ -787,6 +791,83 @@ def sgm_phases(dev, card):
              "ms": k1, "plain_ms": p1, "bound_ms": b1, "bound_by": by1,
              "ms_8_frames": k8, "plain_ms_8_frames": p8,
              "bound_ms_8_frames": b8, "library_ms": None})
+
+
+def speckle_phase(dev, card):
+    """Phase 10e: the speckle kernels (``speckle_cuda.filter_speckles``)
+    against the host filter, their twin, on example 011's maps: BT SGM at
+    1280x720 (D 96, block 7, LR 1) of layered scenes, one frame and 8,
+    ``torch.equal``; the matcher with ``speckleWindowSize`` 120 filtering
+    on the card, one launch set a call; times lone and queued beside the
+    bound (the int16 map read once and written once). Returns the JSON
+    record of the speckle filter."""
+    from simplestereo_tpu_torch.passive import StereoSGM, sgm, speckle_cuda
+    res = example_res()
+    kw = dict(minDisparity=1, numDisparities=96, blockSize=7,
+              disp12MaxDiff=1, device="cuda")
+    scenes = [res.tsukuba_scene((1280, 720), seed=SEED + 40 + i)[:2]
+              for i in range(12)]
+    lefts = np.stack([a for a, _ in scenes])
+    rights = np.stack([b for _, b in scenes])
+    raw = np.concatenate([StereoSGM(**kw).computeBatch(lefts[i:i + 4],
+                                                       rights[i:i + 4])
+                          for i in range(0, 12, 4)])
+    args = (0, 120, 32)  # (minDisparity - 1) * 16, 120, speckleRange * 16
+    host = np.stack([sgm.filter_speckles(d, *args) for d in raw])
+    check((host != raw).any(), "speckle phase: the filter has no work")
+    for frames in (raw[:1], raw[:8]):
+        got = speckle_cuda.filter_speckles(torch.tensor(frames, device=dev),
+                                           *args)
+        check(torch.equal(got.cpu(), torch.from_numpy(host[:len(frames)])),
+              f"speckle kernels, {len(frames)} 720p frames: "
+              f"{(got.cpu().numpy() != host[:len(frames)]).sum()} pixels "
+              f"differ from the host filter")
+    m = StereoSGM(speckleWindowSize=120, **kw)
+    speckle_cuda.speckle_launches = 0
+    one = m.compute(lefts[0], rights[0])
+    batch = m.computeBatch(lefts[:8], rights[:8])
+    launches_main = speckle_cuda.speckle_launches
+    check(launches_main == 2,
+          f"speckle kernels: {launches_main} calls counted on the main "
+          f"path, expected 2")
+    check(np.array_equal(one, host[0]) and np.array_equal(batch, host[:8]),
+          "StereoSGM(speckleWindowSize=120) on the card differs from the "
+          "host filter of its unfiltered maps")
+    del m
+    maps = [torch.tensor(d, device=dev) for d in raw]
+    stacks = [torch.tensor(np.roll(raw[:8], i, 0), device=dev)
+              for i in range(4)]
+
+    def kernels(d):
+        return speckle_cuda.filter_speckles(d, *args)
+
+    k1 = cuda_ms(kernels, maps)[0]
+    q1 = queued_ms(kernels, maps)
+    k8 = cuda_ms(kernels, stacks)[0]
+    q8 = queued_ms(kernels, stacks)
+    p1 = host_ms(lambda d: sgm.filter_speckles(d, *args),
+                 [(d,) for d in raw[:5]])[0]
+    _, _, _, heavy = profile_ms(kernels, [(d,) for d in maps[:6]], top=4)
+    b1, by1 = bound(0, 720 * 1280 * 4)
+    b8, _ = bound(0, 8 * 720 * 1280 * 4)
+    print(f"phase 10e speckle kernels vs host filter: torch.equal on BT SGM "
+          f"maps (1280x720, D 96, block 7, LR 1) of layered scenes, one "
+          f"frame and 8, and through StereoSGM(speckleWindowSize=120) "
+          f"compute and computeBatch, speckle_launches +1 a call; 720p one "
+          f"frame {k1:.4f} ms lone, {q1:.4f} queued (host filter {p1:.2f} "
+          f"ms, bound {b1:.5f} ms, {by1}: the map read and written once, "
+          f"{q1 / b1:.1f}x queued), 8 frames {k8:.4f} ms lone, {q8:.4f} "
+          f"queued (bound {b8:.5f} ms, {q8 / b8:.1f}x); profiled, ms a "
+          f"frame: " + ", ".join(f"{short(k)} {v:.4f}" for k, v in heavy)
+          + f" | {card}")
+    return {"name": "speckle_filter", "route": "cuda",
+            "source": "simplestereo_tpu_torch/csrc/speckle_kernel.cu",
+            "replaces": "simplestereo_tpu/passive/sgm.py filter_speckles "
+                        "(host numpy and scipy, no TPU kernel)",
+            "launches": launches_main, "max_abs_err": 0.0, "ms": k1,
+            "queued_ms": q1, "plain_ms": p1, "bound_ms": b1, "bound_by": by1,
+            "ms_8_frames": k8, "queued_ms_8_frames": q8,
+            "bound_ms_8_frames": b8, "library_ms": None}
 
 
 def gsw_phases(dev, card):
@@ -3636,7 +3717,7 @@ def main():
 
     t0 = time.perf_counter()
     names = ["asw_kernel", "sgm_kernel", "gsw_kernel", "rotate_kernel",
-             "iir_unwrap_kernel", "thomas_kernel"]
+             "iir_unwrap_kernel", "thomas_kernel", "speckle_kernel"]
     _build.build(names + list(_build.HOST_SOURCES))
     for name in names + list(_build.HOST_SOURCES):
         _build.load_library(name)
@@ -3856,6 +3937,7 @@ def main():
         return out
 
     sgm_entry, census_entry = timed("7-10", sgm_phases, dev, card)
+    speckle_entry = timed("10e", speckle_phase, dev, card)
     gsw_entry = timed("11-14", gsw_phases, dev, card)
     rotate_entry = timed("15", rotate_phase, dev, card)
     pts, img = timed("16", pipeline_phase, dev, card)
@@ -3880,8 +3962,8 @@ def main():
           + f"; total {time.perf_counter() - start:.1f} | {card}")
 
     print(json.dumps({"kernels": [asw_entry, sgm_entry, census_entry,
-                                  carry_entry, gsw_entry, rotate_entry,
-                                  iir_entry, s2_entry]}))
+                                  speckle_entry, carry_entry, gsw_entry,
+                                  rotate_entry, iir_entry, s2_entry]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -23,7 +23,10 @@ The sources, one per TPU kernel of the JAX package:
 - ``iir_unwrap_kernel.cu``: the IIR phase-unwrapping recursion (S1, the
   ``lax.scan`` of ``simplestereo_tpu.unwrapping._iir_unwrap``);
 - ``thomas_kernel.cu``: the tridiagonal line solves of the WLS smoother
-  (S2, the ``lax.scan``s of ``simplestereo_tpu.passive.wls._thomas_rows``).
+  (S2, the ``lax.scan``s of ``simplestereo_tpu.passive.wls._thomas_rows``);
+- ``speckle_kernel.cu``: the speckle filter's connected components (no
+  TPU kernel: the JAX package filters on the host), built only when a
+  CUDA ``StereoSGM`` with ``speckleWindowSize > 0`` first filters a map.
 
 The host sources are built the same way with ``g++`` (``HOST_SOURCES``):
 ``native/_ply.cpp``, the PLY writer and parser, ``native/_png.cpp``,
@@ -122,6 +125,11 @@ _SIGNATURES = {
         "thomas_solve": ([_P] * 4 + [_I] * 4 + [_F] * 2 + [_I] * 5 + [_P],
                          _I),
         "thomas_error_string": ([_I], ctypes.c_char_p),
+    },
+    "speckle_kernel": {
+        # disp, out, label, count, B, H, W, m, size, new_val, device, stream
+        "speckle_filter": ([_P] * 4 + [_I] * 7 + [_P], _I),
+        "speckle_error_string": ([_I], ctypes.c_char_p),
     },
     "ply": {
         # path, header, header_len, xyz, n, mode, rgb, vals, as_int,

@@ -22,10 +22,14 @@ per-frame results bit for bit.
   for a CPU one.
 - **Post**: winner-take-all, uniqueness, quadratic subpixel (x16), the
   left-right check from the same path sum, int16 (:func:`_sgm_post`);
-  then, on the host, :func:`filter_speckles`.
+  then, with ``speckleWindowSize > 0``, the speckle filter on the map's
+  device (:meth:`StereoSGM._speckles`): the kernels of
+  :func:`.speckle_cuda.filter_speckles` for a CUDA map, the host function
+  :func:`filter_speckles`, their twin, for a CPU one.
 
-The cost (gray included) and the post run in the spans ``sgm.cost`` and
-``sgm.post`` (:class:`..profiling.annotate`).
+The cost (gray included), the post and the speckle filter run in the spans
+``sgm.cost``, ``sgm.post`` and ``sgm.speckle``
+(:class:`..profiling.annotate`).
 
 Every step does the JAX function's operations in its order, so on the CPU
 the costs and the post are bit-equal to the JAX package's. The census
@@ -42,6 +46,7 @@ import torch
 
 from .._device import resolve_device
 from ..profiling import annotate
+from . import speckle_cuda
 from ._entry import run_numpy
 from .sgm_cuda import CENSUS_BLOCK_MAX, aggregate, census_cost
 
@@ -349,10 +354,12 @@ def filter_speckles(disparity, new_val, max_speckle_size, max_diff):
     """Invalidate small connected blobs of similar disparity (host-side).
 
     A copy of :func:`simplestereo_tpu.passive.sgm.filter_speckles` (numpy
-    and scipy). Parity target: the ``cv2.filterSpeckles`` post-pass SGBM
-    users apply. Connected components (4-connectivity) where neighbouring
-    pixels differ by <= max_diff; components smaller than max_speckle_size
-    become new_val.
+    and scipy), and the twin of the card's kernels
+    (:func:`.speckle_cuda.filter_speckles`). Parity target: the
+    ``cv2.filterSpeckles`` post-pass SGBM users apply. Connected components
+    (4-connectivity) of equal ``floor(d / max(max_diff, 1))``; components
+    smaller than max_speckle_size become new_val. (OpenCV chains
+    neighbours that differ by <= max_diff instead.)
     """
     from scipy.ndimage import label
 
@@ -426,29 +433,46 @@ class StereoSGM:
             cost_method=self.costMethod, census_window=self.censusWindow)
 
     def _speckles(self, disp):
-        return filter_speckles(disp, (self.minDisparity - 1) * 16,
-                               self.speckleWindowSize, self.speckleRange * 16)
+        """The speckle filter of (..., H, W) int16 maps, each map alone,
+        where they lie: a CUDA tensor on the card's kernels
+        (:func:`.speckle_cuda.filter_speckles`), a CPU tensor or a numpy
+        array on the host (:func:`filter_speckles`), of the same type."""
+        args = ((self.minDisparity - 1) * 16, self.speckleWindowSize,
+                self.speckleRange * 16)
+        if isinstance(disp, torch.Tensor) and disp.device.type == "cuda":
+            return speckle_cuda.filter_speckles(disp, *args)
+        host = np.asarray(disp)
+        maps = host.reshape((-1,) + host.shape[-2:])
+        out = np.stack([filter_speckles(d, *args) for d in maps]).reshape(
+            host.shape)
+        return torch.as_tensor(out) if isinstance(disp, torch.Tensor) else out
+
+    def _match(self, imgs1, imgs2, subpixel=True):
+        """(B, H, W) int16 maps of (B, H, W[, 3]) stacks on their device,
+        speckles filtered there (span ``sgm.speckle``) where
+        ``speckleWindowSize > 0``."""
+        out = _sgm_disparity_batch(imgs1, imgs2, **self._kwargs(subpixel))
+        if self.speckleWindowSize > 0:
+            with annotate("sgm.speckle"):
+                out = self._speckles(out)
+        return out
 
     def compute(self, img1, img2, subpixel=True):
         """(H, W) int16 disparity x16 of an (H, W) gray or (H, W, 3) BGR
         pair, referred to img1. Numpy arrays run on the matcher's device
         and give numpy; tensors run on img1's device and give a tensor
         there."""
-        kwargs = self._kwargs(subpixel)
         if not isinstance(img1, torch.Tensor):
             img1 = np.ascontiguousarray(img1)
             img2 = np.ascontiguousarray(img2)
             _check_pair(img1.shape, img2.shape)
-            out = run_numpy(_sgm_disparity, img1, img2, self.device, **kwargs)
-            return out if self.speckleWindowSize == 0 else self._speckles(out)
+            return run_numpy(
+                lambda a, b: self._match(a[None], b[None], subpixel)[0],
+                img1, img2, self.device)
         img2 = torch.as_tensor(img2, device=img1.device)
         _check_pair(img1.shape, img2.shape)
         with annotate("match"):
-            out = _sgm_disparity(img1, img2, **kwargs)
-        if self.speckleWindowSize == 0:
-            return out
-        return torch.as_tensor(self._speckles(out.cpu().numpy()),
-                               device=out.device)
+            return self._match(img1[None], img2[None], subpixel)[0]
 
     def computeBatch(self, imgs1, imgs2, subpixel=True):
         """Batched :meth:`compute`: (B, H, W[, 3]) stacks -> (B, H, W).
@@ -465,11 +489,8 @@ class StereoSGM:
             raise ValueError(
                 "Batches must be (B, H, W) or (B, H, W, 3) stacks with "
                 "identical shapes!")
-        out = run_numpy(_sgm_disparity_batch, imgs1, imgs2, self.device,
-                        **self._kwargs(subpixel))
-        if self.speckleWindowSize > 0:
-            out = np.stack([self._speckles(o) for o in out])
-        return out
+        return run_numpy(self._match, imgs1, imgs2, self.device,
+                         subpixel=subpixel)
 
 
 def _check_pair(shape1, shape2):

@@ -32,7 +32,8 @@ Spans of the matchers' calls, nested on the calling thread: each
 ``compute``/``computeBatch`` of ``StereoASW`` and ``StereoSGM`` opens
 ``upload``, ``match`` and ``readback``; inside ``match`` the glue before
 and after the matcher's kernel runs in ``asw.planes`` and ``asw.finish``
-(ASW) or ``sgm.cost`` and ``sgm.post`` (SGM).
+(ASW) or ``sgm.cost`` and ``sgm.post`` (SGM), and SGM's speckle filter,
+where ``speckleWindowSize > 0``, in ``sgm.speckle``.
 """
 
 import contextlib
