@@ -25,6 +25,14 @@ all started together) and drives the port's main paths:
   filter on example 011's BT SGM maps at 1280x720 (one frame and 8, and
   through ``StereoSGM(speckleWindowSize=120)``), counts their calls and
   times them, lone and queued, beside the bound;
+- SGM's post kernel: holds it ``torch.equal`` to its twin on the path
+  sums of the benchmark's shapes (720p D = 96, one frame and 8, with and
+  without the left-right check), 384x288 D = 16 and 720p D = 128, over
+  the options, on planted ties, signed zeros, infinities and
+  all-off-image columns, past the register and shared-memory plans and
+  the grid's 65,535 frames; counts its calls on ``compute`` and
+  ``computeBatch`` and times it, lone and queued, beside the bound and
+  the twin on the card;
 - GSW: checks the support-weight kernel against its twin on option cases
   (SD, mirrored consistent stack, step, D > 16, negative min_disp, win 1,
   D = 1, normalize, an MI volume, B = 2, a window too large for shared
@@ -868,6 +876,180 @@ def speckle_phase(dev, card):
             "queued_ms": q1, "plain_ms": p1, "bound_ms": b1, "bound_by": by1,
             "ms_8_frames": k8, "queued_ms_8_frames": q8,
             "bound_ms_8_frames": b8, "library_ms": None}
+
+
+# Options of the post kernel's sweep (phase 10f): (min_disp, D) on a
+# layered 45x150 pair (D 13, 40 and 150: not multiples of 32, on 8 and 16
+# lanes a pixel), each with every uniqueness, left-right check and subpixel
+# setting.
+POST_SWEEP = [(0, 13), (-3, 40), (1, 150)]
+
+
+def post_phase(dev, card):
+    """Phase 10f: SGM's post kernel (``sgm_cuda.post``) against its twin
+    ``sgm._sgm_post_plain``, ``torch.equal``: on the path sums of layered
+    scenes at the benchmark's shapes (census 7, block 3, candidates 1..96
+    at 720p, one frame and 8, with disp12MaxDiff -1 and 1), at 384x288
+    D = 16 and 720p D = 128, over ``POST_SWEEP``'s options, on planted S
+    (ties, signed zeros, infinities, all-off-image columns), at D 600 (the
+    candidates read from S), a 20,000-column row (scratch in device
+    memory) and 70,000 frames (two launches); an empty S launches and
+    counts nothing. The twin runs on the CPU, and on the card for the
+    8-frame stacks, held to the CPU's on one frame. Counts the calls on
+    ``compute`` and ``computeBatch`` and times kernel (lone and queued)
+    and twin at 720p D = 96. Returns the JSON record of the post
+    kernel."""
+    from simplestereo_tpu_torch.passive import StereoSGM, sgm, sgm_cuda
+    res = example_res()
+    lawn = dict(minDisparity=1, numDisparities=96, blockSize=3,
+                costMethod="census", censusWindow=7, P1=120, P2=480)
+
+    hd = [res.tsukuba_scene((1280, 720), seed=SEED + 50 + i)[:2]
+          for i in range(4)]
+
+    def scenes(B, h, w, seed):
+        """B layered (w, h) pairs; at 720p phase 10f's four, rows rolled."""
+        if (h, w) != (720, 1280):
+            return [res.tsukuba_scene((w, h), seed=seed + i)[:2]
+                    for i in range(B)]
+        return [tuple(np.roll(v, seed + i, axis=0) for v in hd[i % 4])
+                for i in range(B)]
+
+    def path_sum(B, h, w, seed, min_disp=1, D=96, **kw):
+        """S of B layered (w, h) scenes in the lawn configuration."""
+        m = StereoSGM(device="cuda", **{**lawn, "minDisparity": min_disp,
+                                        "numDisparities": D, **kw})
+        views = scenes(B, h, w, seed)
+        C = sgm._cost_from_gray(*(
+            sgm._gray_frames(torch.tensor(np.stack([v[i] for v in views]),
+                                          device=dev)) for i in (0, 1)),
+            **{k: v for k, v in m._kwargs(True).items() if k in (
+                "min_disp", "num_disp", "block_size", "prefilter_cap",
+                "cost_method", "census_window")})
+        return sgm_cuda.aggregate(C.contiguous(), m.P1, m.P2, m.paths)
+
+    def opts(min_disp, D, lr=-1, uniqueness=10.0, subpixel=True):
+        return dict(min_disp=min_disp, num_disp=D, uniqueness=uniqueness,
+                    disp12_max_diff=lr, subpixel=subpixel)
+
+    cases = 0
+
+    def held(S, kw, where, on_card=False):
+        """The kernel against the twin (on the CPU, or on the card)."""
+        nonlocal cases
+        n0 = sgm_cuda.post_launches
+        got = sgm_cuda.post(S, **kw)
+        torch.cuda.synchronize()
+        check(sgm_cuda.post_launches == n0 + 1,
+              f"post kernel {where}: call not counted")
+        want = sgm._sgm_post_plain(S if on_card else S.cpu(), **kw)
+        check(torch.equal(got.cpu(), want.cpu()), f"post kernel {where} "
+              f"{kw}: {(got.cpu() != want.cpu()).sum().item()} pixels "
+              f"differ from the twin")
+        cases += 1
+        return got
+
+    S1 = path_sum(1, 720, 1280, 0)
+    S8 = path_sum(8, 720, 1280, 1)
+    for lr in (-1, 1):
+        got = held(S1, opts(1, 96, lr), "720p D=96")
+        check(torch.equal(sgm._sgm_post_plain(S1, **opts(1, 96, lr)), got),
+              f"post twin on the card differs from the CPU's, LR {lr}")
+        held(S8, opts(1, 96, lr), "720p D=96 x 8", on_card=True)
+    del S1, S8, got
+    torch.cuda.empty_cache()
+    for (h, w), cfg in SGM_MAIN:  # 384x288 D = 16, 720p D = 128
+        md, D = cfg.get("minDisparity", 0), cfg["numDisparities"]
+        S = path_sum(1, h, w, SEED + 70, md, D, blockSize=cfg["blockSize"])
+        for lr, uniqueness in ((-1, cfg["uniquenessRatio"]), (1, 10.0)):
+            held(S, opts(md, D, lr, uniqueness), f"{w}x{h} D={D}")
+    for md, D in POST_SWEEP:
+        S = path_sum(2, 45, 150, SEED + 80, md, D)
+        for lr in (-1, 0, 1):
+            for uniqueness in (0.0, 10.0):
+                for subpixel in (False, True):
+                    held(S, opts(md, D, lr, uniqueness, subpixel),
+                         "45x150 sweep")
+    rng = np.random.default_rng(SEED + 90)
+    planted = rng.integers(0, 4, (2, 7, 300, 40)).astype(np.float32)
+    planted[(planted == 0) & (rng.random(planted.shape) < 0.5)] = -0.0
+    planted[rng.random(planted.shape) < 0.01] = np.inf
+    planted[rng.random(planted.shape) < 0.001] = -np.inf
+    planted[:, 3, ::5] = np.inf  # every candidate infinite
+    S = torch.tensor(planted, device=dev)
+    for md in (0, -3, 1, 290):  # 290: columns 0..289 all off-image
+        for lr in (-1, 0, 1):
+            held(S, opts(md, 40, lr), "planted")
+    wide = [(torch.tensor(rng.integers(0, 1000, (1, 3, 700, 600)).astype(
+                np.float32), device=dev), 2, 600, "D=600 (read from S)"),
+            (torch.tensor(rng.integers(0, 50, (2, 20_000, 8)).astype(
+                np.float32), device=dev), 0, 8, "20,000 columns (scratch)"),
+            (torch.tensor(rng.integers(0, 50, (70_000, 2, 3, 5)).astype(
+                np.float32), device=dev), -1, 5, "70,000 frames")]
+    for S, md, D, where in wide:
+        for lr in (-1, 1):
+            held(S, opts(md, D, lr), where)
+    del S, wide
+    for shape in ((0, 4, 8, 16), (2, 0, 8, 16), (2, 4, 0, 16)):
+        n0 = sgm_cuda.post_launches
+        got = sgm_cuda.post(torch.empty(shape, device=dev), **opts(0, 16, 1))
+        check(got.shape == shape[:-1] and sgm_cuda.post_launches == n0,
+              f"post kernel on an empty S {shape}: {tuple(got.shape)}, "
+              f"{sgm_cuda.post_launches - n0} calls counted")
+    plans = {sgm_cuda._post_plan(D) for D in (96, 16, 128, 13, 40, 150,
+                                              600, 8, 5)}
+    check(plans == {(12, 8), (4, 8), (16, 8), (8, 8), (12, 16), (0, 32)},
+          f"phase 10f ran plans {sorted(plans)}")
+
+    left, right = hd[0]
+    m = StereoSGM(device="cuda", **lawn)
+    sgm_cuda.post_launches = 0
+    one = m.compute(left, right)
+    batch = m.computeBatch(np.stack([left] * 2), np.stack([right] * 2))
+    check(sgm_cuda.post_launches == 2 and np.array_equal(batch[0], one),
+          f"post kernel: {sgm_cuda.post_launches} calls on compute and "
+          f"computeBatch, expected 2")
+    launches_main = sgm_cuda.post_launches
+    del m, one, batch
+    torch.cuda.empty_cache()
+
+    times = {}
+    for B, n in ((1, 7), (8, 4)):
+        ins = [path_sum(B, 720, 1280, 2 + 8 * i) for i in range(n)]
+        for lr in (-1, 1) if B == 1 else (-1,):
+            kern = lambda S: sgm_cuda.post(S, **opts(1, 96, lr))  # noqa
+            twin = lambda S: sgm._sgm_post_plain(S, **opts(1, 96, lr))  # noqa
+            times[(B, lr)] = (cuda_ms(kern, ins)[0], queued_ms(kern, ins),
+                              cuda_ms(twin, ins[:3])[0])
+        del ins
+        torch.cuda.empty_cache()
+    # S read once, the int16 map written once
+    b1, by1 = bound(0, 720 * 1280 * (96 * 4 + 2))
+    b8, _ = bound(0, 8 * 720 * 1280 * (96 * 4 + 2))
+    (k1, q1, p1), (kl, ql, pl) = times[(1, -1)], times[(1, 1)]
+    k8, q8, p8 = times[(8, -1)]
+    print(f"phase 10f SGM post kernel vs twin: torch.equal on {cases} "
+          f"cases (720p D=96 one frame and 8, LR -1/1; 384x288 D=16 and "
+          f"720p D=128; min_disp 0/-3/1, D 13/40/150, uniqueness 0/10, LR "
+          f"-1/0/1, subpixel off/on; planted ties, signed zeros, infinities "
+          f"and off-image columns; D 600, 20,000 columns, 70,000 frames), "
+          f"post_launches +1 a call and {launches_main} on compute and "
+          f"computeBatch; 720p D=96 one frame {k1:.4f} ms lone, {q1:.4f} "
+          f"queued (twin {p1:.3f} ms, bound {b1:.4f} ms, {by1}: S read "
+          f"once, {q1 / b1:.2f}x queued), with the LR check {kl:.4f} lone, "
+          f"{ql:.4f} queued (twin {pl:.3f}); 8 frames {k8:.4f} ms lone, "
+          f"{q8:.4f} queued (twin {p8:.3f} ms, bound {b8:.4f} ms, "
+          f"{q8 / b8:.2f}x queued) | {card}")
+    return {"name": "sgm_post", "route": "cuda",
+            "source": "simplestereo_tpu_torch/csrc/sgm_kernel.cu",
+            "replaces": "simplestereo_tpu/passive/sgm.py _sgm_post "
+                        "(XLA-fused, no TPU kernel)",
+            "launches": launches_main, "max_abs_err": 0.0, "ms": k1,
+            "queued_ms": q1, "plain_ms": p1, "bound_ms": b1,
+            "bound_by": by1, "ms_lr": kl, "queued_ms_lr": ql,
+            "plain_ms_lr": pl, "ms_8_frames": k8, "queued_ms_8_frames": q8,
+            "plain_ms_8_frames": p8, "bound_ms_8_frames": b8,
+            "library_ms": None}
 
 
 def gsw_phases(dev, card):
@@ -3033,11 +3215,12 @@ def distributed_phase(dev, card):
                 *gn_args, iterations=25, device=dev)),
     }
     asw_cuda.launches = sgm_cuda.launches = gsw_cuda.launches = 0
+    sgm_cuda.post_launches = 0
     tiled = {name: run() for name, (run, _) in calls.items()}
     dry = dryrun.dryrun_multichip(1, "cuda")
     torch.cuda.synchronize()
     counts = {"asw": asw_cuda.launches, "sgm": sgm_cuda.launches,
-              "gsw": gsw_cuda.launches}
+              "sgm_post": sgm_cuda.post_launches, "gsw": gsw_cuda.launches}
     check(all(counts.values()), f"phase 28: kernel launches {counts}")
 
     def same(a, b):
@@ -3069,8 +3252,9 @@ def distributed_phase(dev, card):
           f"scene, Gauss-Newton on a mesh (16 views, 25 iterations), "
           f"dryrun_multichip(1): each equal to its single-card call; "
           f"launches in that run: K1 {counts['asw']}, K2 {counts['sgm']}, "
-          f"K3 {counts['gsw']} | host clock, mesh / single card, ms: "
-          + ", ".join(times) + f" | {card}")
+          f"K3 {counts['gsw']}, SGM post {counts['sgm_post']} | host "
+          f"clock, mesh / single card, ms: " + ", ".join(times)
+          + f" | {card}")
     return counts
 
 
@@ -3938,6 +4122,7 @@ def main():
 
     sgm_entry, census_entry = timed("7-10", sgm_phases, dev, card)
     speckle_entry = timed("10e", speckle_phase, dev, card)
+    post_entry = timed("10f", post_phase, dev, card)
     gsw_entry = timed("11-14", gsw_phases, dev, card)
     rotate_entry = timed("15", rotate_phase, dev, card)
     pts, img = timed("16", pipeline_phase, dev, card)
@@ -3962,8 +4147,9 @@ def main():
           + f"; total {time.perf_counter() - start:.1f} | {card}")
 
     print(json.dumps({"kernels": [asw_entry, sgm_entry, census_entry,
-                                  speckle_entry, carry_entry, gsw_entry,
-                                  rotate_entry, iir_entry, s2_entry]}))
+                                  speckle_entry, post_entry, carry_entry,
+                                  gsw_entry, rotate_entry, iir_entry,
+                                  s2_entry]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -14,8 +14,9 @@ The sources, one per TPU kernel of the JAX package:
 
 - ``asw_kernel.cu``: ASW cost + select (K1, ``asw_pallas._asw_kernel``);
 - ``sgm_kernel.cu``: SGM path aggregation (K2,
-  ``sgm_pallas._sgm_scan_kernel``), and the census cost volume it reads
-  (no TPU kernel: XLA fuses the JAX package's);
+  ``sgm_pallas._sgm_scan_kernel``), the census cost volume it reads and
+  the post pass over the path sum it writes (no TPU kernels: XLA fuses
+  the JAX package's);
 - ``gsw_kernel.cu``: GSW volume + support-weight aggregation (K3,
   ``gsw_pallas._gsw_kernel``);
 - ``rotate_kernel.cu``: per-plane dynamic roll (K4, the
@@ -95,6 +96,9 @@ _SIGNATURES = {
         # gray1, gray2, rows, codes, C, B, H, W, min_disp, D, win, block,
         # device, stream
         "sgm_census_cost": ([_P] * 5 + [_I] * 8 + [_P], _I),
+        # S, out, keys, disps, B, H, W, D, min_disp, uniq_factor, uniq,
+        # lr_max, subpixel, nj, group, device, stream
+        "sgm_post": ([_P] * 4 + [_I] * 5 + [_F] + [_I] * 6 + [_P], _I),
         "sgm_error_string": ([_I], ctypes.c_char_p),
     },
     "gsw_kernel": {

@@ -872,6 +872,291 @@ extern "C" int sgm_census_cost(const void* gray1, const void* gray2,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// The post pass over the path sum S (sgm_post): winner-take-all,
+// uniqueness, the quadratic subpixel fit and the left-right check.
+//
+// Replaces no TPU kernel: the JAX package's _sgm_post is jnp that XLA
+// fuses. The port's torch code for it (sgm.py: _sgm_post_plain) is its
+// twin, and ran as 67 launches (89 with the left-right check), some over
+// int64 volumes of S's shape. For S (B, H, W, D) float32, candidate
+// k at disparity dv = min_disp + k, and S(x, k) = inf where x - dv leaves
+// [0, W) (the off-image mask), it writes the int16 map
+//     best  = the least k of min_k S(x, k) (torch.argmin's tie rule)
+//     valid = S(x, best) finite, and with uniqueness u > 0
+//             !(s2 * 100 < S(x, best) * (100 + u)), s2 = min over
+//             |k - best| > 1
+//     out   = round(16 * (best + min_disp) + 16 * delta) if valid, else
+//             16 * (min_disp - 1)
+// with delta the clamped quadratic fit through S(best - 1), S(best),
+// S(best + 1) at interior best (non-finite neighbours read S(best)), in
+// the twin's float32 operations and order: __fmul_rn, __fadd_rn and
+// __fdiv_rn keep nvcc from contracting them into an FMA. With the
+// left-right check (disp12_max_diff >= 0) a pixel also stays valid only
+// where |dr - (best + min_disp)| <= disp12_max_diff, dr the right view's
+// winner at column clamp(x - best - min_disp): min_dv + argmin_k
+// S(xr + dv, k) over the candidates that land in the image. S holds no
+// NaN (it is a sum of finite costs).
+//
+// What bounds it: reading S once (354 MB a 1280x720 frame at D = 96,
+// 0.106 ms at 3.35 TB/s); the map is 2 bytes a pixel. The design reads S
+// once, the left-right check included:
+//   - a block takes one (frame, row); a pixel takes a group of G lanes
+//     (8 up to D = 128), lane g holding candidates g + G * j, j < NJ, in
+//     registers, so a load of the warp reads whole 32-byte sectors. Each
+//     of the block's streams walks a contiguous run of the row and loads
+//     its next pixel before it reduces this one.
+//   - one butterfly over the group gives the (value, index) minimum, a
+//     second one the minimum outside best +- 1; S(best +- 1) come from
+//     the lanes that hold them by shuffle. The mask is applied as S is
+//     loaded.
+//   - the right view's winner: the row keeps one 64-bit key a column xr
+//     in shared memory, the value's order-preserving bits (-0 read as +0)
+//     in the high word and k in the low. Each pixel's in-image candidates
+//     atomicMin their key at xr = x - dv as they are loaded, so the key
+//     ends as the least value, then the least k: torch.argmin of the
+//     gathered right-view volume. After a barrier the row's pixels are
+//     checked against it and the row is written, coalesced.
+// A row too wide for shared memory (about 16,600 columns with the check)
+// keeps its keys, winners and map in scratch in device memory instead;
+// D > 512 (NJ 0) reads each candidate from S at each use instead of
+// holding it.
+
+namespace {
+
+constexpr int kPostWarps = 4;  // warps a block
+
+// The order-preserving key of a right-view candidate: value, then k.
+__device__ __forceinline__ unsigned long long right_key(float v, int k) {
+  unsigned u = __float_as_uint(v == 0.0f ? 0.0f : v);
+  u = (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+  return ((unsigned long long)u << 32) | (unsigned)k;
+}
+
+// torch.round(v).to(torch.int16): half to even, then the integer's low
+// 16 bits.
+__device__ __forceinline__ short to_int16(float v) {
+  return (short)(int)rintf(v);
+}
+
+// grid (H, frames); block kPostWarps warps. kSmem: the row's keys,
+// winners and map in dynamic shared memory; else in keys, disps (one
+// entry a pixel of the launch) and out itself.
+template <int NJ, bool kSmem>
+__global__ void __launch_bounds__(kPostWarps * 32) sgm_post_kernel(
+    const float* __restrict__ S, short* __restrict__ out,
+    unsigned long long* __restrict__ gkeys, int* __restrict__ gdisps, int H,
+    int W, int D, int G, int min_disp, float uniq_factor, int uniq,
+    int lr_max, int subpixel) {
+  extern __shared__ unsigned long long post_buf[];
+  const int lane = threadIdx.x & 31;
+  const int g = lane & (G - 1);
+  const int streams = kPostWarps * (32 / G);
+  const int stream = (lane / G) * kPostWarps + (threadIdx.x >> 5);
+  const int nj = NJ > 0 ? NJ : (D + G - 1) / G;
+  const bool lr = lr_max >= 0;
+  const long long row = (long long)blockIdx.y * H + blockIdx.x;
+  const float* Sr = S + row * W * D;
+  short* orow = out + row * W;
+  unsigned long long* keys;
+  int* disps;
+  short* stage;
+  if constexpr (kSmem) {
+    keys = post_buf;
+    disps = reinterpret_cast<int*>(keys + (lr ? W : 0));
+    stage = reinterpret_cast<short*>(disps + (lr ? W : 0));
+  } else {
+    keys = gkeys + row * W;
+    disps = gdisps + row * W;
+    stage = orow;
+  }
+  if (lr) {
+    for (int x = threadIdx.x; x < W; x += blockDim.x)
+      keys[x] = right_key(INFINITY, 0);
+    __syncthreads();
+  }
+  const float marker = (float)((min_disp - 1) * 16);
+
+  // Candidate k of pixel x is in the image for k in [x - W + 1 - min_disp,
+  // x - min_disp]; the masked value, inf outside it and past D.
+  const auto load = [&](float (&v)[NJ > 0 ? NJ : 1], int x) {
+    const float* px = Sr + (long long)x * D;
+    const int lo = x - (W - 1) - min_disp, hi = x - min_disp;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const int k = g + G * j;
+      v[j] = x < W && k < D && k >= lo && k <= hi ? __ldcs(px + k) : INFINITY;
+    }
+  };
+  const int L = (W + streams - 1) / streams;  // pixels a stream walks
+  const int x0 = stream * L;
+  float cur[NJ > 0 ? NJ : 1], nxt[NJ > 0 ? NJ : 1];
+  if constexpr (NJ > 0) load(cur, x0);
+  for (int t = 0; t < L; ++t) {  // uniform: every lane shuffles each step
+    const int x = x0 + t;
+    if constexpr (NJ > 0) {
+      if (t + 1 < L) load(nxt, x + 1);
+    }
+    const float* px = Sr + (long long)x * D;
+    const int lo = x - (W - 1) - min_disp, hi = x - min_disp;
+    const auto val = [&](int j) -> float {
+      if constexpr (NJ > 0) {
+        return cur[j];
+      } else {
+        const int k = g + G * j;
+        return x < W && k < D && k >= lo && k <= hi ? __ldg(px + k)
+                                                    : INFINITY;
+      }
+    };
+
+    // The winner: the least (value, k), and the right view's keys.
+    float bv = val(0);
+    int bk = g;
+#pragma unroll
+    for (int j = 0; j < nj; ++j) {
+      const int k = g + G * j;
+      const float v = val(j);
+      if (v < bv) {  // k grows along the lane: the first of equals stays
+        bv = v;
+        bk = k;
+      }
+      if (lr && x < W && k < D && k >= lo && k <= hi)
+        atomicMin(keys + (x - min_disp - k), right_key(v, k));
+    }
+    for (int o = G >> 1; o > 0; o >>= 1) {
+      const float ov = __shfl_xor_sync(kFull, bv, o, G);
+      const int ok = __shfl_xor_sync(kFull, bk, o, G);
+      if (ov < bv || (ov == bv && ok < bk)) {
+        bv = ov;
+        bk = ok;
+      }
+    }
+    bool valid = isfinite(bv);
+    if (uniq) {
+      float s2 = INFINITY;
+#pragma unroll
+      for (int j = 0; j < nj; ++j)
+        if ((unsigned)(g + G * j - bk + 1) > 2u) s2 = fminf(s2, val(j));
+      for (int o = G >> 1; o > 0; o >>= 1)
+        s2 = fminf(s2, __shfl_xor_sync(kFull, s2, o, G));
+      valid = valid &&
+              !(__fmul_rn(s2, 100.0f) < __fmul_rn(bv, uniq_factor));
+    }
+    const int disp = bk + min_disp;
+    float d16 = __fmul_rn((float)disp, 16.0f);
+    if (subpixel) {
+      // S(k) of the group, from the lane that holds it.
+      const auto pick = [&](int k) -> float {
+        if constexpr (NJ > 0) {
+          const int jk = k >> (__ffs(G) - 1);  // k / G
+          float v = INFINITY;
+#pragma unroll
+          for (int j = 0; j < NJ; ++j)
+            if (j == jk) v = cur[j];
+          return __shfl_sync(kFull, v, k & (G - 1), G);
+        } else {
+          return x < W && k >= lo && k <= hi ? __ldg(px + k) : INFINITY;
+        }
+      };
+      float bm1 = pick(max(bk - 1, 0)), bp1 = pick(min(bk + 1, D - 1));
+      bm1 = isfinite(bm1) ? bm1 : bv;
+      bp1 = isfinite(bp1) ? bp1 : bv;
+      const float denom =
+          __fsub_rn(__fadd_rn(bm1, bp1), __fmul_rn(2.0f, bv));
+      float delta = denom > 1e-6f ? __fdiv_rn(__fsub_rn(bm1, bp1),
+                                              __fmul_rn(2.0f, denom))
+                                  : 0.0f;
+      delta = fminf(fmaxf(delta, -0.5f), 0.5f);
+      const bool interior = bk > 0 && bk < D - 1;
+      d16 = __fadd_rn(d16, __fmul_rn(interior ? delta : 0.0f, 16.0f));
+    }
+    if (g == 0 && x < W) {
+      stage[x] = to_int16(valid ? d16 : marker);
+      if (lr) disps[x] = disp;
+    }
+    if constexpr (NJ > 0) {
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) cur[j] = nxt[j];
+    }
+  }
+  if (!kSmem && !lr) return;  // written in place
+  __syncthreads();
+  const short bad = to_int16(marker);
+  for (int x = threadIdx.x; x < W; x += blockDim.x) {
+    short o = stage[x];
+    if (lr) {
+      const int disp = disps[x];
+      const int xr = min(max(x - disp, 0), W - 1);
+      const int dr = (int)(unsigned)(keys[xr] & 0xffffffffu) + min_disp;
+      if (abs(dr - disp) > lr_max) o = bad;
+    }
+    orow[x] = o;
+  }
+}
+
+using PostFn = void (*)(const float*, short*, unsigned long long*, int*, int,
+                        int, int, int, int, float, int, int, int);
+
+template <bool kSmem>
+PostFn post_fn(int nj) {
+  switch (nj) {
+    case 0: return sgm_post_kernel<0, kSmem>;
+    case 4: return sgm_post_kernel<4, kSmem>;
+    case 8: return sgm_post_kernel<8, kSmem>;
+    case 12: return sgm_post_kernel<12, kSmem>;
+    case 16: return sgm_post_kernel<16, kSmem>;
+    default: return nullptr;
+  }
+}
+
+}  // namespace
+
+// out (B, H, W) int16: the post pass of S (B, H, W, D) float32 (see the
+// note above). nj, group: candidates a lane (4, 8, 12 or 16 in registers;
+// 0 reads them from S) and lanes a pixel (a power of two, group * nj >= D
+// unless nj is 0), from sgm_cuda._post_plan. keys, disps: null to keep a
+// row in shared memory; else scratch of B * H * W uint64 and int32 (when
+// the row does not fit). uniq_factor is 100 + uniqueness in float32, uniq
+// nonzero turns the uniqueness test on, lr_max < 0 turns the left-right
+// check off. B <= 65,535.
+extern "C" int sgm_post(const void* S, void* out, void* keys, void* disps,
+                        int B, int H, int W, int D, int min_disp,
+                        float uniq_factor, int uniq, int lr_max,
+                        int subpixel, int nj, int group, int device,
+                        void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (B < 1 || B > 65535 || H < 1 || W < 1 || D < 1 || group < 1 ||
+      group > 32 || (group & (group - 1)) != 0 ||
+      (nj > 0 && group * nj < D) || (nj == 0 && group != 32) ||
+      (keys == nullptr) != (disps == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const bool smem_row = keys == nullptr;
+  const PostFn kernel = smem_row ? post_fn<true>(nj) : post_fn<false>(nj);
+  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
+  size_t smem = 0;
+  if (smem_row) {
+    smem = (size_t)W * (2 + (lr_max >= 0 ? 12 : 0));
+    int smem_max = 0;
+    err = cudaDeviceGetAttribute(&smem_max,
+                                 cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                                 device);
+    if (err != cudaSuccess) return (int)err;
+    if (smem > (size_t)smem_max) return (int)cudaErrorInvalidValue;
+    if (smem > 48 * 1024) {
+      err = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (err != cudaSuccess) return (int)err;
+    }
+  }
+  kernel<<<dim3(H, B), kPostWarps * 32, smem,
+           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(S), static_cast<short*>(out),
+      static_cast<unsigned long long*>(keys), static_cast<int*>(disps), H, W,
+      D, group, min_disp, uniq_factor, uniq, lr_max, subpixel);
+  return (int)cudaGetLastError();
+}
+
 extern "C" const char* sgm_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

@@ -21,7 +21,9 @@ per-frame results bit for bit.
   kernel for a CUDA tensor and the plain twin :func:`.sgm_cuda._aggregate`
   for a CPU one.
 - **Post**: winner-take-all, uniqueness, quadratic subpixel (x16), the
-  left-right check from the same path sum, int16 (:func:`_sgm_post`);
+  left-right check from the same path sum, int16 (:func:`_sgm_post`): the
+  post kernel :func:`.sgm_cuda.post` for a CUDA path sum, its twin, the
+  torch code :func:`_sgm_post_plain`, for a CPU one;
   then, with ``speckleWindowSize > 0``, the speckle filter on the map's
   device (:meth:`StereoSGM._speckles`): the kernels of
   :func:`.speckle_cuda.filter_speckles` for a CUDA map, the host function
@@ -48,7 +50,7 @@ from .._device import resolve_device
 from ..profiling import annotate
 from . import speckle_cuda
 from ._entry import run_numpy
-from .sgm_cuda import CENSUS_BLOCK_MAX, aggregate, census_cost
+from .sgm_cuda import CENSUS_BLOCK_MAX, aggregate, census_cost, post
 
 INVALID_SHIFT = 4  # output = disparity * 16 (OpenCV DISP_SHIFT convention)
 
@@ -257,7 +259,22 @@ def _sgm_cost(img1, img2, *, min_disp, num_disp, block_size,
 def _sgm_post(S, *, min_disp, num_disp, uniqueness, disp12_max_diff,
               subpixel):
     """WTA + uniqueness + subpixel + LR check on a (..., H, W, D) path sum.
-    Returns (..., H, W) int16 disparity x16."""
+    Returns (..., H, W) int16 disparity x16 on S's device: a CUDA S runs the
+    post kernel (:func:`.sgm_cuda.post`), a CPU one the torch code
+    (:func:`_sgm_post_plain`), its twin; any other device raises."""
+    kw = dict(min_disp=min_disp, num_disp=num_disp, uniqueness=uniqueness,
+              disp12_max_diff=disp12_max_diff, subpixel=subpixel)
+    if S.device.type == "cuda":
+        return post(S, **kw)
+    if S.device.type != "cpu":
+        raise ValueError(f"no SGM post for device {S.device}")
+    return _sgm_post_plain(S, **kw)
+
+
+def _sgm_post_plain(S, *, min_disp, num_disp, uniqueness, disp12_max_diff,
+                    subpixel):
+    """:func:`_sgm_post` in torch operations, on any device (the JAX
+    function's operations in its order)."""
     H, W = S.shape[-3:-1]
     dev = S.device
     # Mask candidates whose target column x - d falls outside the image

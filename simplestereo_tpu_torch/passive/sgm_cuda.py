@@ -34,7 +34,8 @@ The census cost volume C that the aggregation reads comes from the same
 library: :func:`census_cost` launches ``census_words_kernel`` and
 ``census_cost_kernel`` (``csrc/sgm_kernel.cu``), whose twin is the torch
 code of :mod:`.sgm` (``_census_cost``, ``_edge_fill_rows`` and
-``_box_sum``).
+``_box_sum``). So does the post pass over S: :func:`post` launches
+``sgm_post_kernel``, whose twin is ``sgm._sgm_post_plain``.
 """
 
 import math
@@ -69,6 +70,23 @@ CENSUS_WINDOWS = (3, 5, 7)
 # The largest block the census kernels take (kCensusBlockMax): a box sum,
 # at most 48 k * k, stays below 2**24, so exact in float32 in any order.
 CENSUS_BLOCK_MAX = 591
+
+# Calls of post (each launches sgm_post_kernel once, or once a piece of
+# 65,535 frames).
+post_launches = 0
+
+# The post kernel holds a lane's candidates in registers, NJ of them
+# (csrc/sgm_kernel.cu: sgm_post_kernel<NJ>), a pixel taking a group of 8,
+# 16 or 32 lanes: D <= 32 * 16. A larger D reads them from S (NJ 0).
+# The least NJ that holds D: fewer registers, more blocks an SM (on the
+# H100 at 720p NJ 4 takes 0.110 ms at D = 16 and NJ 8 0.160 at D = 40,
+# where NJ 12 takes 0.208).
+POST_NJ = (4, 8, 12, 16)
+POST_D_MAX = 32 * POST_NJ[-1]
+# A row's right-view keys (8 bytes), winners (4) and map (2) a column in
+# shared memory up to the H100's opt-in 227 KB a block; a wider row keeps
+# them in device memory.
+POST_SMEM_MAX = 232_448
 
 
 def _plan(B, H, W, D, paths, mode=None):
@@ -463,3 +481,66 @@ def census_cost(gray1, gray2, min_disp, num_disp, census_window,
                                + lib.sgm_error_string(err).decode())
     census_launches += 1
     return C.reshape(*lead, H, W, D)
+
+
+def _post_plan(D):
+    """(nj, group) of the post kernel for D candidates: ``group`` lanes a
+    pixel (8 up to D = 128, then 16 and 32) and ``nj`` candidates a lane in
+    registers, the least of ``POST_NJ`` with group * nj >= D; nj 0 (read
+    from S at each use, 32 lanes) above ``POST_D_MAX``."""
+    if D > POST_D_MAX:
+        return 0, 32
+    group = 8 if D <= 8 * POST_NJ[-1] else 16 if D <= 16 * POST_NJ[-1] else 32
+    return next(n for n in POST_NJ if group * n >= D), group
+
+
+def post(S, min_disp, num_disp, uniqueness, disp12_max_diff, subpixel):
+    """Winner-take-all, uniqueness, subpixel and the left-right check of a
+    (..., H, W, D) float32 path sum S on a CUDA card: the (..., H, W)
+    int16 map x16 of ``sgm._sgm_post``, equal to its twin
+    ``sgm._sgm_post_plain`` bit for bit, from one launch that reads S once
+    (see ``csrc/sgm_kernel.cu``).
+
+    Adds one to ``post_launches`` once the launches have succeeded; an
+    empty map launches nothing and counts nothing. Raises ValueError for
+    S off the card, of another type, of fewer than 3 axes or with D other
+    than ``num_disp``.
+    """
+    global post_launches
+    if S.dtype != torch.float32 or S.dim() < 3 or S.shape[-1] != num_disp:
+        raise ValueError(f"S must be a float32 (..., H, W, {num_disp}) "
+                         f"tensor, got {S.dtype} {tuple(S.shape)}")
+    if S.device.type != "cuda":
+        raise ValueError(f"the post kernel takes a CUDA tensor, got "
+                         f"{S.device}")
+    dev = S.device
+    lead, (H, W, D) = S.shape[:-3], S.shape[-3:]
+    B = math.prod(lead)
+    out = torch.empty((*lead, H, W), dtype=torch.int16, device=dev)
+    if out.numel() == 0:
+        return out
+    S = S.contiguous()
+    lr = disp12_max_diff >= 0
+    # |dr - d| <= disp12_max_diff of whole numbers, as a C int
+    lr_max = min(math.floor(disp12_max_diff), 2**31 - 1) if lr else -1
+    keys = disps = None
+    if W * (2 + 12 * lr) > POST_SMEM_MAX:
+        keys = torch.empty(min(B, _build.GRID_YZ_MAX) * H * W,
+                           dtype=torch.int64, device=dev)
+        disps = torch.empty(keys.shape, dtype=torch.int32, device=dev)
+    nj, group = _post_plan(D)
+    lib = _build.load_library("sgm_kernel")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    frame = H * W
+    for b0, b1 in _build.frame_pieces(B, _build.GRID_YZ_MAX):
+        err = lib.sgm_post(
+            S.data_ptr() + b0 * frame * D * 4, out.data_ptr() + b0 * frame * 2,
+            None if keys is None else keys.data_ptr(),
+            None if disps is None else disps.data_ptr(), b1 - b0, H, W, D,
+            min_disp, 100.0 + uniqueness, int(uniqueness > 0), lr_max,
+            int(subpixel), nj, group, dev.index, stream)
+        if err != 0:
+            raise RuntimeError("SGM post kernel launch failed: "
+                               + lib.sgm_error_string(err).decode())
+    post_launches += 1
+    return out
