@@ -80,12 +80,8 @@ def build(root):
         out = proc.communicate()[0]
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {name}:\n{out}")
-        lib = ctypes.CDLL(str(so))
-        sigs = _build._SIGNATURES["asw_kernel"]
-        for fn, (argtypes, restype) in sigs.items():
-            getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = restype
-        libs[name] = lib
+        libs[name] = _build.bind(ctypes.CDLL(str(so)),
+                                 asw_cuda.LIBRARY.signatures)
     return libs
 
 
@@ -100,7 +96,7 @@ def main():
     pkw = dict(win_size=35, min_disp=4, max_disp=14, gamma_c=15.0,
                gamma_p=17.5, consistent=True)
     D = pkw["max_disp"] - pkw["min_disp"] + 1
-    load = _build.load_library
+    base = asw_cuda.LIBRARY.loaded
     try:
         for h, w in ((720, 1280), (288, 384)):
             left, right = cs.pair(h, w)
@@ -115,8 +111,7 @@ def main():
                     runs += [(name, None), ("base", None)]
             runs.append(("base", "l1"))
             for name, path in runs:
-                lib = libs[name]
-                _build.load_library = lambda _, lib=lib: lib  # noqa: E731
+                asw_cuda.LIBRARY.loaded = libs[name]
                 budgets = () if path == "l1" else VARIANTS[name][1]
                 plan = asw_cuda._plan(pkw["win_size"], 1, D, 1, h, w,
                                       **({} if budgets is None
@@ -130,7 +125,7 @@ def main():
                       f"{plan['smem']} B, {regs} registers, {spill} B "
                       f"spilled, {blocks} blocks an SM", flush=True)
     finally:
-        _build.load_library = load
+        asw_cuda.LIBRARY.loaded = base
     print(card)
 
 

@@ -18,21 +18,11 @@ all started together) and drives the port's main paths:
   ``computeBatch`` in the Tsukuba-size census configuration at 384x288 and
   the full-width BT row at 1280x720 with D = 128 on the same synthetic
   pairs, and times kernel (each mode, and the first version), twin and
-  ``compute()``; holds the census kernels ``torch.equal`` to their twin
-  at the census main path's shape and the benchmark's (720p, D = 96, one
-  frame and 8), counts their calls on the main path and times both;
-- the speckle filter: holds its kernels ``torch.equal`` to the host
-  filter on example 011's BT SGM maps at 1280x720 (one frame and 8, and
-  through ``StereoSGM(speckleWindowSize=120)``), counts their calls and
-  times them, lone and queued, beside the bound;
-- SGM's post kernel: holds it ``torch.equal`` to its twin on the path
-  sums of the benchmark's shapes (720p D = 96, one frame and 8, with and
-  without the left-right check), 384x288 D = 16 and 720p D = 128, over
-  the options, on planted ties, signed zeros, infinities and
-  all-off-image columns, past the register and shared-memory plans and
-  the grid's 65,535 frames; counts its calls on ``compute`` and
-  ``computeBatch`` and times it, lone and queued, beside the bound and
-  the twin on the card;
+  ``compute()``, and counts the census kernels' calls on the main path.
+  The census, speckle and post kernels are held to their twins by their
+  own ``card``-marked tests (tests/test_torch_sgm_census.py,
+  tests/test_torch_speckle.py, tests/test_torch_sgm_post.py), which phase
+  31 runs;
 - GSW: checks the support-weight kernel against its twin on option cases
   (SD, mirrored consistent stack, step, D > 16, negative min_disp, win 1,
   D = 1, normalize, an MI volume, B = 2, a window too large for shared
@@ -126,12 +116,21 @@ all started together) and drives the port's main paths:
   384x288 Tsukuba), each held to the tree's truth, with K1, K2, K3 and S2
   held against their twins on the scripts' own inputs, the launch counts
   of each script read, the cheap ones against the same script on the
-  CPU, and each script and matcher call timed.
+  CPU, and each script and matcher call timed;
+- the census, speckle and post kernels: their ``card``-marked test files
+  run in this process (``python -m pytest --noconftest -p
+  no:cacheprovider -m card`` on tests/test_torch_sgm_census.py,
+  tests/test_torch_speckle.py and tests/test_torch_sgm_post.py), every
+  case passing and none skipped, then their calls counted on
+  ``compute`` and ``computeBatch`` of the benchmark's two SGM
+  configurations at 1280x720.
 
-Every kernel's JSON record carries ``bound_ms``, the least time the card
-could take for the kernel's work at the timed shape: the larger of its
-operations over the float32 peak and its bytes (each input read once,
-each output written once) over the memory rate.
+Every timed kernel's JSON record carries ``bound_ms``, the least time the
+card could take for the kernel's work at the timed shape: the larger of
+its operations over the float32 peak and its bytes (each input read once,
+each output written once) over the memory rate. The census, speckle and
+post kernels are not timed here (``ms`` null): the benchmark's
+``breakdown`` records their device time inside its cells.
 
 Every phase prints one line, then a line gives each phase's wall time;
 any failed check raises, so the exit code is nonzero and no result line
@@ -509,9 +508,8 @@ def profile_ms(fn, inputs, top=3):
 
 def sgm_phases(dev, card):
     """Phases 7-10: the SGM kernel against its twin, the SGM main path in
-    both configurations, times, and the census kernels against their twin
-    at the main path's shapes. Returns the JSON records of K2 and of the
-    census kernels."""
+    both configurations (the census kernels' calls counted), and times.
+    Returns the JSON record of K2."""
     from simplestereo_tpu_torch.passive import StereoSGM, sgm, sgm_cuda
 
     def args(m, *keys):
@@ -735,321 +733,124 @@ def sgm_phases(dev, card):
     print("phase 10c SGM compute() profile (torch.profiler, 4 calls each) | "
           + " | ".join(parts) + f" | {card}")
 
-    # ---- phase 10d: the census kernels at the main path's shapes --------
-    # C of the census phases above, and of the benchmark's sgm_lawn720
-    # cells (720p, candidates 1..96, window 7, block 3; one frame and 8).
-    def grays(h, w, B, seed):
-        left, right = pair(h, w, seed)
-        return tuple(sgm._gray_frames(torch.tensor(np.stack(
-            [np.roll(im, i, axis=0) for i in range(B)]), device=dev))
-            for im in (left, right))
-
-    def census(g, md, D, win, k):
-        return sgm_cuda.census_cost(*g, md, D, win, k)
-
-    def twin(g, md, D, win, k):
-        return sgm._box_sum(sgm._census_cost(*g, md, D, win), k)
-
-    c0 = SGM_MAIN[0][1]
-    shapes = [((288, 384), 1, c0["minDisparity"], c0["numDisparities"],
-               c0["censusWindow"], c0["blockSize"]),
-              ((720, 1280), 1, 1, 96, 7, 3), ((720, 1280), 8, 1, 96, 7, 3)]
-    sgm_cuda.census_launches = 0
-    for (h, w), B, *kw in shapes:
-        g = grays(h, w, B, SEED + 11)
-        got, want = census(g, *kw), twin(g, *kw)
-        check(torch.equal(got, want), f"census kernels {w}x{h} B={B} "
-              f"{kw}: C differs from the twin, max abs err "
-              f"{(got - want).abs().max().item():.3g}")
-        del g, got, want
-        torch.cuda.empty_cache()
-    check(sgm_cuda.census_launches == len(shapes),
-          f"census kernels: {sgm_cuda.census_launches} calls counted, "
-          f"expected {len(shapes)}")
-    cen = {}
-    for B, n in ((1, 7), (8, 4)):
-        ins = [grays(720, 1280, B, SEED + 20 + i) for i in range(n)]
-        k_ms = cuda_ms(lambda g: census(g, 1, 96, 7, 3), ins)[0]
-        p_ms = cuda_ms(lambda g: twin(g, 1, 96, 7, 3), ins[:3])[0]
-        cen[B] = (k_ms, p_ms, bound(0, B * 720 * 1280 * 96 * 4))
-        del ins
-        torch.cuda.empty_cache()
-    (k1, p1, (b1, by1)), (k8, p8, (b8, _)) = cen[1], cen[8]
-    print(f"phase 10d SGM census kernels vs twin: C torch.equal at 384x288 "
-          f"D=16 window 7 block 3 and 1280x720 D=96 (candidates 1..96) "
-          f"window 7 block 3, one frame and 8, census_launches +1 a call "
-          f"and {census_main} on phase 8's main path; 720p one frame "
-          f"{k1:.3f} ms (twin {p1:.2f} ms, bound {b1:.4f} ms, {by1}: C "
-          f"written once, {k1 / b1:.2f}x), 8 frames {k8:.3f} ms "
-          f"({k8 / 8:.3f} a frame; twin {p8:.2f} ms, bound {b8:.4f} ms, "
-          f"{k8 / b8:.2f}x) | {card}")
-
     k_ms, p_ms, err, (bound_ms, bound_by) = times[SGM_MAIN[0][0]]
-    return ({"name": "sgm_aggregate", "route": "cuda",
-             "source": "simplestereo_tpu_torch/csrc/sgm_kernel.cu",
-             "replaces": "simplestereo_tpu/passive/sgm_pallas.py:72",
-             "launches": launches_main, "max_abs_err": err,
-             "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms,
-             "bound_by": bound_by, "library_ms": None},
-            {"name": "sgm_census_cost", "route": "cuda",
-             "source": "simplestereo_tpu_torch/csrc/sgm_kernel.cu",
-             "replaces": "simplestereo_tpu/passive/sgm.py:127 (XLA-fused, "
-                         "no TPU kernel)",
-             "launches": census_main, "max_abs_err": 0.0,
-             "ms": k1, "plain_ms": p1, "bound_ms": b1, "bound_by": by1,
-             "ms_8_frames": k8, "plain_ms_8_frames": p8,
-             "bound_ms_8_frames": b8, "library_ms": None})
-
-
-def speckle_phase(dev, card):
-    """Phase 10e: the speckle kernels (``speckle_cuda.filter_speckles``)
-    against the host filter, their twin, on example 011's maps: BT SGM at
-    1280x720 (D 96, block 7, LR 1) of layered scenes, one frame and 8,
-    ``torch.equal``; the matcher with ``speckleWindowSize`` 120 filtering
-    on the card, one launch set a call; times lone and queued beside the
-    bound (the int16 map read once and written once). Returns the JSON
-    record of the speckle filter."""
-    from simplestereo_tpu_torch.passive import StereoSGM, sgm, speckle_cuda
-    res = example_res()
-    kw = dict(minDisparity=1, numDisparities=96, blockSize=7,
-              disp12MaxDiff=1, device="cuda")
-    scenes = [res.tsukuba_scene((1280, 720), seed=SEED + 40 + i)[:2]
-              for i in range(12)]
-    lefts = np.stack([a for a, _ in scenes])
-    rights = np.stack([b for _, b in scenes])
-    raw = np.concatenate([StereoSGM(**kw).computeBatch(lefts[i:i + 4],
-                                                       rights[i:i + 4])
-                          for i in range(0, 12, 4)])
-    args = (0, 120, 32)  # (minDisparity - 1) * 16, 120, speckleRange * 16
-    host = np.stack([sgm.filter_speckles(d, *args) for d in raw])
-    check((host != raw).any(), "speckle phase: the filter has no work")
-    for frames in (raw[:1], raw[:8]):
-        got = speckle_cuda.filter_speckles(torch.tensor(frames, device=dev),
-                                           *args)
-        check(torch.equal(got.cpu(), torch.from_numpy(host[:len(frames)])),
-              f"speckle kernels, {len(frames)} 720p frames: "
-              f"{(got.cpu().numpy() != host[:len(frames)]).sum()} pixels "
-              f"differ from the host filter")
-    m = StereoSGM(speckleWindowSize=120, **kw)
-    speckle_cuda.speckle_launches = 0
-    one = m.compute(lefts[0], rights[0])
-    batch = m.computeBatch(lefts[:8], rights[:8])
-    launches_main = speckle_cuda.speckle_launches
-    check(launches_main == 2,
-          f"speckle kernels: {launches_main} calls counted on the main "
-          f"path, expected 2")
-    check(np.array_equal(one, host[0]) and np.array_equal(batch, host[:8]),
-          "StereoSGM(speckleWindowSize=120) on the card differs from the "
-          "host filter of its unfiltered maps")
-    del m
-    maps = [torch.tensor(d, device=dev) for d in raw]
-    stacks = [torch.tensor(np.roll(raw[:8], i, 0), device=dev)
-              for i in range(4)]
-
-    def kernels(d):
-        return speckle_cuda.filter_speckles(d, *args)
-
-    k1 = cuda_ms(kernels, maps)[0]
-    q1 = queued_ms(kernels, maps)
-    k8 = cuda_ms(kernels, stacks)[0]
-    q8 = queued_ms(kernels, stacks)
-    p1 = host_ms(lambda d: sgm.filter_speckles(d, *args),
-                 [(d,) for d in raw[:5]])[0]
-    _, _, _, heavy = profile_ms(kernels, [(d,) for d in maps[:6]], top=4)
-    b1, by1 = bound(0, 720 * 1280 * 4)
-    b8, _ = bound(0, 8 * 720 * 1280 * 4)
-    print(f"phase 10e speckle kernels vs host filter: torch.equal on BT SGM "
-          f"maps (1280x720, D 96, block 7, LR 1) of layered scenes, one "
-          f"frame and 8, and through StereoSGM(speckleWindowSize=120) "
-          f"compute and computeBatch, speckle_launches +1 a call; 720p one "
-          f"frame {k1:.4f} ms lone, {q1:.4f} queued (host filter {p1:.2f} "
-          f"ms, bound {b1:.5f} ms, {by1}: the map read and written once, "
-          f"{q1 / b1:.1f}x queued), 8 frames {k8:.4f} ms lone, {q8:.4f} "
-          f"queued (bound {b8:.5f} ms, {q8 / b8:.1f}x); profiled, ms a "
-          f"frame: " + ", ".join(f"{short(k)} {v:.4f}" for k, v in heavy)
-          + f" | {card}")
-    return {"name": "speckle_filter", "route": "cuda",
-            "source": "simplestereo_tpu_torch/csrc/speckle_kernel.cu",
-            "replaces": "simplestereo_tpu/passive/sgm.py filter_speckles "
-                        "(host numpy and scipy, no TPU kernel)",
-            "launches": launches_main, "max_abs_err": 0.0, "ms": k1,
-            "queued_ms": q1, "plain_ms": p1, "bound_ms": b1, "bound_by": by1,
-            "ms_8_frames": k8, "queued_ms_8_frames": q8,
-            "bound_ms_8_frames": b8, "library_ms": None}
-
-
-# Options of the post kernel's sweep (phase 10f): (min_disp, D) on a
-# layered 45x150 pair (D 13, 40 and 150: not multiples of 32, on 8 and 16
-# lanes a pixel), each with every uniqueness, left-right check and subpixel
-# setting.
-POST_SWEEP = [(0, 13), (-3, 40), (1, 150)]
-
-
-def post_phase(dev, card):
-    """Phase 10f: SGM's post kernel (``sgm_cuda.post``) against its twin
-    ``sgm._sgm_post_plain``, ``torch.equal``: on the path sums of layered
-    scenes at the benchmark's shapes (census 7, block 3, candidates 1..96
-    at 720p, one frame and 8, with disp12MaxDiff -1 and 1), at 384x288
-    D = 16 and 720p D = 128, over ``POST_SWEEP``'s options, on planted S
-    (ties, signed zeros, infinities, all-off-image columns), at D 600 (the
-    candidates read from S), a 20,000-column row (scratch in device
-    memory) and 70,000 frames (two launches); an empty S launches and
-    counts nothing. The twin runs on the CPU, and on the card for the
-    8-frame stacks, held to the CPU's on one frame. Counts the calls on
-    ``compute`` and ``computeBatch`` and times kernel (lone and queued)
-    and twin at 720p D = 96. Returns the JSON record of the post
-    kernel."""
-    from simplestereo_tpu_torch.passive import StereoSGM, sgm, sgm_cuda
-    res = example_res()
-    lawn = dict(minDisparity=1, numDisparities=96, blockSize=3,
-                costMethod="census", censusWindow=7, P1=120, P2=480)
-
-    hd = [res.tsukuba_scene((1280, 720), seed=SEED + 50 + i)[:2]
-          for i in range(4)]
-
-    def scenes(B, h, w, seed):
-        """B layered (w, h) pairs; at 720p phase 10f's four, rows rolled."""
-        if (h, w) != (720, 1280):
-            return [res.tsukuba_scene((w, h), seed=seed + i)[:2]
-                    for i in range(B)]
-        return [tuple(np.roll(v, seed + i, axis=0) for v in hd[i % 4])
-                for i in range(B)]
-
-    def path_sum(B, h, w, seed, min_disp=1, D=96, **kw):
-        """S of B layered (w, h) scenes in the lawn configuration."""
-        m = StereoSGM(device="cuda", **{**lawn, "minDisparity": min_disp,
-                                        "numDisparities": D, **kw})
-        views = scenes(B, h, w, seed)
-        C = sgm._cost_from_gray(*(
-            sgm._gray_frames(torch.tensor(np.stack([v[i] for v in views]),
-                                          device=dev)) for i in (0, 1)),
-            **{k: v for k, v in m._kwargs(True).items() if k in (
-                "min_disp", "num_disp", "block_size", "prefilter_cap",
-                "cost_method", "census_window")})
-        return sgm_cuda.aggregate(C.contiguous(), m.P1, m.P2, m.paths)
-
-    def opts(min_disp, D, lr=-1, uniqueness=10.0, subpixel=True):
-        return dict(min_disp=min_disp, num_disp=D, uniqueness=uniqueness,
-                    disp12_max_diff=lr, subpixel=subpixel)
-
-    cases = 0
-
-    def held(S, kw, where, on_card=False):
-        """The kernel against the twin (on the CPU, or on the card)."""
-        nonlocal cases
-        n0 = sgm_cuda.post_launches
-        got = sgm_cuda.post(S, **kw)
-        torch.cuda.synchronize()
-        check(sgm_cuda.post_launches == n0 + 1,
-              f"post kernel {where}: call not counted")
-        want = sgm._sgm_post_plain(S if on_card else S.cpu(), **kw)
-        check(torch.equal(got.cpu(), want.cpu()), f"post kernel {where} "
-              f"{kw}: {(got.cpu() != want.cpu()).sum().item()} pixels "
-              f"differ from the twin")
-        cases += 1
-        return got
-
-    S1 = path_sum(1, 720, 1280, 0)
-    S8 = path_sum(8, 720, 1280, 1)
-    for lr in (-1, 1):
-        got = held(S1, opts(1, 96, lr), "720p D=96")
-        check(torch.equal(sgm._sgm_post_plain(S1, **opts(1, 96, lr)), got),
-              f"post twin on the card differs from the CPU's, LR {lr}")
-        held(S8, opts(1, 96, lr), "720p D=96 x 8", on_card=True)
-    del S1, S8, got
-    torch.cuda.empty_cache()
-    for (h, w), cfg in SGM_MAIN:  # 384x288 D = 16, 720p D = 128
-        md, D = cfg.get("minDisparity", 0), cfg["numDisparities"]
-        S = path_sum(1, h, w, SEED + 70, md, D, blockSize=cfg["blockSize"])
-        for lr, uniqueness in ((-1, cfg["uniquenessRatio"]), (1, 10.0)):
-            held(S, opts(md, D, lr, uniqueness), f"{w}x{h} D={D}")
-    for md, D in POST_SWEEP:
-        S = path_sum(2, 45, 150, SEED + 80, md, D)
-        for lr in (-1, 0, 1):
-            for uniqueness in (0.0, 10.0):
-                for subpixel in (False, True):
-                    held(S, opts(md, D, lr, uniqueness, subpixel),
-                         "45x150 sweep")
-    rng = np.random.default_rng(SEED + 90)
-    planted = rng.integers(0, 4, (2, 7, 300, 40)).astype(np.float32)
-    planted[(planted == 0) & (rng.random(planted.shape) < 0.5)] = -0.0
-    planted[rng.random(planted.shape) < 0.01] = np.inf
-    planted[rng.random(planted.shape) < 0.001] = -np.inf
-    planted[:, 3, ::5] = np.inf  # every candidate infinite
-    S = torch.tensor(planted, device=dev)
-    for md in (0, -3, 1, 290):  # 290: columns 0..289 all off-image
-        for lr in (-1, 0, 1):
-            held(S, opts(md, 40, lr), "planted")
-    wide = [(torch.tensor(rng.integers(0, 1000, (1, 3, 700, 600)).astype(
-                np.float32), device=dev), 2, 600, "D=600 (read from S)"),
-            (torch.tensor(rng.integers(0, 50, (2, 20_000, 8)).astype(
-                np.float32), device=dev), 0, 8, "20,000 columns (scratch)"),
-            (torch.tensor(rng.integers(0, 50, (70_000, 2, 3, 5)).astype(
-                np.float32), device=dev), -1, 5, "70,000 frames")]
-    for S, md, D, where in wide:
-        for lr in (-1, 1):
-            held(S, opts(md, D, lr), where)
-    del S, wide
-    for shape in ((0, 4, 8, 16), (2, 0, 8, 16), (2, 4, 0, 16)):
-        n0 = sgm_cuda.post_launches
-        got = sgm_cuda.post(torch.empty(shape, device=dev), **opts(0, 16, 1))
-        check(got.shape == shape[:-1] and sgm_cuda.post_launches == n0,
-              f"post kernel on an empty S {shape}: {tuple(got.shape)}, "
-              f"{sgm_cuda.post_launches - n0} calls counted")
-    plans = {sgm_cuda._post_plan(D) for D in (96, 16, 128, 13, 40, 150,
-                                              600, 8, 5)}
-    check(plans == {(12, 8), (4, 8), (16, 8), (8, 8), (12, 16), (0, 32)},
-          f"phase 10f ran plans {sorted(plans)}")
-
-    left, right = hd[0]
-    m = StereoSGM(device="cuda", **lawn)
-    sgm_cuda.post_launches = 0
-    one = m.compute(left, right)
-    batch = m.computeBatch(np.stack([left] * 2), np.stack([right] * 2))
-    check(sgm_cuda.post_launches == 2 and np.array_equal(batch[0], one),
-          f"post kernel: {sgm_cuda.post_launches} calls on compute and "
-          f"computeBatch, expected 2")
-    launches_main = sgm_cuda.post_launches
-    del m, one, batch
-    torch.cuda.empty_cache()
-
-    times = {}
-    for B, n in ((1, 7), (8, 4)):
-        ins = [path_sum(B, 720, 1280, 2 + 8 * i) for i in range(n)]
-        for lr in (-1, 1) if B == 1 else (-1,):
-            kern = lambda S: sgm_cuda.post(S, **opts(1, 96, lr))  # noqa
-            twin = lambda S: sgm._sgm_post_plain(S, **opts(1, 96, lr))  # noqa
-            times[(B, lr)] = (cuda_ms(kern, ins)[0], queued_ms(kern, ins),
-                              cuda_ms(twin, ins[:3])[0])
-        del ins
-        torch.cuda.empty_cache()
-    # S read once, the int16 map written once
-    b1, by1 = bound(0, 720 * 1280 * (96 * 4 + 2))
-    b8, _ = bound(0, 8 * 720 * 1280 * (96 * 4 + 2))
-    (k1, q1, p1), (kl, ql, pl) = times[(1, -1)], times[(1, 1)]
-    k8, q8, p8 = times[(8, -1)]
-    print(f"phase 10f SGM post kernel vs twin: torch.equal on {cases} "
-          f"cases (720p D=96 one frame and 8, LR -1/1; 384x288 D=16 and "
-          f"720p D=128; min_disp 0/-3/1, D 13/40/150, uniqueness 0/10, LR "
-          f"-1/0/1, subpixel off/on; planted ties, signed zeros, infinities "
-          f"and off-image columns; D 600, 20,000 columns, 70,000 frames), "
-          f"post_launches +1 a call and {launches_main} on compute and "
-          f"computeBatch; 720p D=96 one frame {k1:.4f} ms lone, {q1:.4f} "
-          f"queued (twin {p1:.3f} ms, bound {b1:.4f} ms, {by1}: S read "
-          f"once, {q1 / b1:.2f}x queued), with the LR check {kl:.4f} lone, "
-          f"{ql:.4f} queued (twin {pl:.3f}); 8 frames {k8:.4f} ms lone, "
-          f"{q8:.4f} queued (twin {p8:.3f} ms, bound {b8:.4f} ms, "
-          f"{q8 / b8:.2f}x queued) | {card}")
-    return {"name": "sgm_post", "route": "cuda",
+    return {"name": "sgm_aggregate", "route": "cuda",
             "source": "simplestereo_tpu_torch/csrc/sgm_kernel.cu",
-            "replaces": "simplestereo_tpu/passive/sgm.py _sgm_post "
-                        "(XLA-fused, no TPU kernel)",
-            "launches": launches_main, "max_abs_err": 0.0, "ms": k1,
-            "queued_ms": q1, "plain_ms": p1, "bound_ms": b1,
-            "bound_by": by1, "ms_lr": kl, "queued_ms_lr": ql,
-            "plain_ms_lr": pl, "ms_8_frames": k8, "queued_ms_8_frames": q8,
-            "plain_ms_8_frames": p8, "bound_ms_8_frames": b8,
-            "library_ms": None}
+            "replaces": "simplestereo_tpu/passive/sgm_pallas.py:72",
+            "launches": launches_main, "max_abs_err": err,
+            "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None}
+
+
+# The card-marked test files that hold the census, speckle and post kernels
+# to their twins, each with the fewest cases it passes on the card.
+CARD_TESTS = {"tests/test_torch_sgm_census.py": 80,
+              "tests/test_torch_speckle.py": 162,
+              "tests/test_torch_sgm_post.py": 21}
+# The benchmark's two SGM configurations (portbench/configs/sgm_lawn720
+# and sgm_cloud720): census with the post; BT with the post and speckles.
+SGM_LAWN = dict(minDisparity=1, numDisparities=96, blockSize=3,
+                costMethod="census", censusWindow=7, P1=120, P2=480)
+SGM_CLOUD = dict(minDisparity=1, numDisparities=96, blockSize=7,
+                 disp12MaxDiff=1, speckleWindowSize=120, speckleRange=2)
+
+
+def card_tests_phase(dev, card):
+    """Phase 31: the census, speckle and post kernels against their twins.
+    Runs their ``card``-marked test files (``CARD_TESTS``) in this
+    process, as ``python -m pytest --noconftest -p no:cacheprovider -m
+    card`` does: no case may fail or skip, and each file passes at least
+    its count. Then counts each kernel's calls on the main path,
+    ``compute`` and ``computeBatch`` (2 frames) of the benchmark's two SGM
+    configurations at 1280x720. Returns the three kernels' JSON
+    records."""
+    import collections
+    import pathlib
+
+    import pytest
+
+    from simplestereo_tpu_torch.passive import (StereoSGM, sgm_cuda,
+                                                speckle_cuda)
+
+    class Outcomes:
+        """Each test's outcome, counted by file."""
+
+        def __init__(self):
+            self.n = collections.Counter()
+
+        def pytest_runtest_logreport(self, report):
+            where = report.nodeid.split("::")[0]
+            if report.failed or report.skipped:
+                self.n[where, report.outcome] += 1
+            elif report.when == "call":
+                self.n[where, "passed"] += 1
+
+    root = pathlib.Path(__file__).resolve().parent
+    outcomes = Outcomes()
+    t0 = time.perf_counter()
+    rc = pytest.main([*(str(root / f) for f in CARD_TESTS), "--noconftest",
+                      "-p", "no:cacheprovider", "-q", "-rfEs", "-m",
+                      "card"], plugins=[outcomes])
+    tests_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    check(rc == 0, f"card tests of the census, speckle and post kernels: "
+          f"pytest exit code {int(rc)}")
+    passed = {}
+    for f, least in CARD_TESTS.items():
+        n = {k: outcomes.n[f, k] for k in ("passed", "failed", "skipped")}
+        check(n["failed"] == 0 and n["skipped"] == 0
+              and n["passed"] >= least, f"card tests {f}: {n}, expected "
+              f"at least {least} passed and none failed or skipped")
+        passed[f] = n["passed"]
+
+    left, right = pair(720, 1280)
+    counts = {}
+    for name, cfg in (("sgm_lawn720", SGM_LAWN), ("sgm_cloud720", SGM_CLOUD)):
+        m = StereoSGM(device="cuda", **cfg)
+        sgm_cuda.census_launches = sgm_cuda.post_launches = 0
+        speckle_cuda.speckle_launches = 0
+        one = m.compute(left, right)
+        batch = m.computeBatch(np.stack([left] * 2), np.stack([right] * 2))
+        counts[name] = (sgm_cuda.census_launches, sgm_cuda.post_launches,
+                        speckle_cuda.speckle_launches)
+        check(np.array_equal(batch[0], one) and np.array_equal(batch[1], one),
+              f"{name} on the card: computeBatch differs from compute")
+        del m, one, batch
+    check(counts == {"sgm_lawn720": (2, 2, 0), "sgm_cloud720": (0, 2, 2)},
+          f"census, post and speckle calls on compute + computeBatch: "
+          f"{counts}, expected (2, 2, 0) for sgm_lawn720 and (0, 2, 2) for "
+          f"sgm_cloud720")
+    torch.cuda.empty_cache()
+    print(f"phase 31 census, speckle and post kernels vs twins: their card "
+          f"tests in this process, " + ", ".join(
+              f"{pathlib.Path(f).name} {n} passed" for f, n in passed.items())
+          + f", none failed or skipped, {tests_s:.1f} s; calls on compute + "
+          f"computeBatch at 1280x720 (census, post, speckle): sgm_lawn720 "
+          f"{counts['sgm_lawn720']}, sgm_cloud720 {counts['sgm_cloud720']} "
+          f"| {card}")
+
+    def record(name, source, replaces, launches, tests):
+        # times: the benchmark's breakdown records these kernels' device
+        # time inside its cells
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": 0.0, "checked_by": tests,
+                "card_cases": passed[tests], "ms": None, "plain_ms": None,
+                "bound_ms": None, "library_ms": None}
+
+    sgm_src = "simplestereo_tpu_torch/csrc/sgm_kernel.cu"
+    tests = list(CARD_TESTS)
+    return [record("sgm_census_cost", sgm_src, "simplestereo_tpu/passive/"
+                   "sgm.py:127 (XLA-fused, no TPU kernel)",
+                   counts["sgm_lawn720"][0], tests[0]),
+            record("speckle_filter",
+                   "simplestereo_tpu_torch/csrc/speckle_kernel.cu",
+                   "simplestereo_tpu/passive/sgm.py filter_speckles (host "
+                   "numpy and scipy, no TPU kernel)",
+                   counts["sgm_cloud720"][2], tests[1]),
+            record("sgm_post", sgm_src, "simplestereo_tpu/passive/sgm.py "
+                   "_sgm_post (XLA-fused, no TPU kernel)",
+                   counts["sgm_lawn720"][1], tests[2])]
 
 
 def gsw_phases(dev, card):
@@ -1748,12 +1549,9 @@ def iir_phase(dev, card):
     cases_s = time.perf_counter() - t0
     # The kernel's division by 3 against the IEEE division: every float
     # in its range, 2^30 doubles.
-    lib = _build.load_library("iir_unwrap_kernel")
     bad = torch.zeros(2, dtype=torch.int64, device=dev)
-    err = lib.iir_div3_check(bad.data_ptr(), dev.index,
-                             torch.cuda.current_stream(dev).cuda_stream)
-    check(err == 0, "S1 div3 check launch: "
-          + lib.iir_error_string(err).decode())
+    unwrapping.LIBRARY.launch("iir_div3_check", dev, bad.data_ptr(),
+                              what="S1 div3 check launch")
     bad = bad.tolist()
     check(bad == [0, 0], f"S1 div3 differs from the IEEE division on "
           f"{bad[0]} floats and {bad[1]} of 2^30 doubles")
@@ -3900,15 +3698,12 @@ def main():
           f"{sys.version.split()[0]}")
 
     t0 = time.perf_counter()
-    names = ["asw_kernel", "sgm_kernel", "gsw_kernel", "rotate_kernel",
-             "iir_unwrap_kernel", "thomas_kernel", "speckle_kernel"]
-    _build.build(names + list(_build.HOST_SOURCES))
-    for name in names + list(_build.HOST_SOURCES):
-        _build.load_library(name)
+    names, host = _build.library_names()
+    _build.build(names + host)
     build_s = time.perf_counter() - t0
     ptxas = [ptxas_summary(_build.compile_log(name)) for name in names]
     print(f"phase 2 build: {' + '.join(names)} (nvcc) and "
-          f"{' + '.join(_build.HOST_SOURCES)} (g++) in parallel "
+          f"{' + '.join(host)} (g++) in parallel "
           f"{build_s:.2f} s | registers/spill bytes a thread: "
           + " | ".join(ptxas) + f" | {card}")
 
@@ -4120,9 +3915,7 @@ def main():
         walls[name] = time.perf_counter() - t
         return out
 
-    sgm_entry, census_entry = timed("7-10", sgm_phases, dev, card)
-    speckle_entry = timed("10e", speckle_phase, dev, card)
-    post_entry = timed("10f", post_phase, dev, card)
+    sgm_entry = timed("7-10", sgm_phases, dev, card)
     gsw_entry = timed("11-14", gsw_phases, dev, card)
     rotate_entry = timed("15", rotate_phase, dev, card)
     pts, img = timed("16", pipeline_phase, dev, card)
@@ -4142,6 +3935,8 @@ def main():
     carry_entry["launches"] = counts["sgm"]
     timed("29", formats_phase, dev, card)
     timed("30", examples_phase, dev, card)
+    census_entry, speckle_entry, post_entry = timed(
+        "31", card_tests_phase, dev, card)
     print("phase wall times (host clock, s, build included in 1-6): "
           + ", ".join(f"{k} {v:.1f}" for k, v in walls.items())
           + f"; total {time.perf_counter() - start:.1f} | {card}")

@@ -83,11 +83,8 @@ def build(root):
         out = proc.communicate()[0]
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {name}:\n{out}")
-        lib = ctypes.CDLL(str(so))
-        for fn, (argtypes, restype) in _build._SIGNATURES["gsw_kernel"].items():
-            getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = restype
-        libs[name] = lib
+        libs[name] = _build.bind(ctypes.CDLL(str(so)),
+                                 gsw_cuda.LIBRARY.signatures)
     return libs
 
 
@@ -137,9 +134,9 @@ def gate(dev, rows, twins):
             twins[i] = gsw_cuda._gsw_pass_plain(planes, H=h, W=w,
                                                 return_cost=True, **kw)
         pd, pc = twins[i]
-        _, rel, mism = cs.compare_pass((kc, kd, None, None),
-                                       (pc, pd, None, None), kw["min_disp"],
-                                       f"case {kw} {h}x{w}")
+        _, rel, mism, _ = cs.compare_pass((kc, kd, None, None),
+                                          (pc, pd, None, None),
+                                          kw["min_disp"], f"case {kw} {h}x{w}")
         worst = [max(worst[0], rel), max(worst[1], mism)]
     return worst
 
@@ -152,13 +149,13 @@ def main():
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip()
     libs = build(_build.BUILD_DIR.parent / "gsw_variants")
-    load = _build.load_library
+    base = gsw_cuda.LIBRARY.loaded
     twins = {}
     try:
         for name, (_, rows, gated) in VARIANTS.items():
             if not gated:
                 continue
-            _build.load_library = lambda _, lib=libs[name]: lib  # noqa: E731
+            gsw_cuda.LIBRARY.loaded = libs[name]
             try:
                 rel, mism = gate(dev, rows, twins)
                 verdict = (f"passes: worst rel err {rel:.3g}, worst map "
@@ -176,7 +173,7 @@ def main():
                 if name != "base":
                     runs += [name, "base"]
             for name in runs:
-                _build.load_library = lambda _, lib=libs[name]: lib  # noqa: E731
+                gsw_cuda.LIBRARY.loaded = libs[name]
                 plan = plan_for(VARIANTS[name][1], MAIN["win_size"], 1, 11, 2,
                                 h, w)
                 ms, _ = cs.cuda_ms(lambda p: gsw_cuda._gsw_pass(
@@ -186,7 +183,7 @@ def main():
                       f"shared memory, {regs} registers, {spill} B spilled, "
                       f"{blocks} blocks an SM", flush=True)
     finally:
-        _build.load_library = load
+        gsw_cuda.LIBRARY.loaded = base
     print(card)
 
 

@@ -1,188 +1,39 @@
 """
-Build the CUDA sources under ``csrc/`` at first use and bind them with
-ctypes.
+Build the package's C sources at first use and bind them with ctypes.
 
-Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
-``nvcc`` into ``build/simplestereo_tpu_torch/lib<name>-<hash>.so`` at the
-root of the checkout, keyed by a hash of the source and the flags, so an
-edited source is rebuilt and an unchanged one is loaded as it is. A plain
-C interface keeps the build to seconds (a source that includes PyTorch's
-headers takes minutes). Nothing is fetched: the sources are the
-repository's own.
+A library is found by its name: ``csrc/<name>.cu`` is compiled by
+``nvcc`` and ``native/_<name>.cpp`` by ``g++``, into
+``build/simplestereo_tpu_torch/lib<name>-<hash>.so`` at the root of the
+checkout, keyed by a hash of the source and the flags, so an edited
+source is rebuilt and an unchanged one is loaded as it is. Each source
+has a plain C interface, which keeps the build to seconds. Nothing is
+fetched: the sources are the repository's own.
 
-The sources, one per TPU kernel of the JAX package:
-
-- ``asw_kernel.cu``: ASW cost + select (K1, ``asw_pallas._asw_kernel``);
-- ``sgm_kernel.cu``: SGM path aggregation (K2,
-  ``sgm_pallas._sgm_scan_kernel``), the census cost volume it reads and
-  the post pass over the path sum it writes (no TPU kernels: XLA fuses
-  the JAX package's);
-- ``gsw_kernel.cu``: GSW volume + support-weight aggregation (K3,
-  ``gsw_pallas._gsw_kernel``);
-- ``rotate_kernel.cu``: per-plane dynamic roll (K4, the
-  ``benchmarks/probe_dynamic_rotate.py`` probe);
-- ``iir_unwrap_kernel.cu``: the IIR phase-unwrapping recursion (S1, the
-  ``lax.scan`` of ``simplestereo_tpu.unwrapping._iir_unwrap``);
-- ``thomas_kernel.cu``: the tridiagonal line solves of the WLS smoother
-  (S2, the ``lax.scan``s of ``simplestereo_tpu.passive.wls._thomas_rows``);
-- ``speckle_kernel.cu``: the speckle filter's connected components (no
-  TPU kernel: the JAX package filters on the host), built only when a
-  CUDA ``StereoSGM`` with ``speckleWindowSize > 0`` first filters a map.
-
-The host sources are built the same way with ``g++`` (``HOST_SOURCES``):
-``native/_ply.cpp``, the PLY writer and parser, ``native/_png.cpp``,
-the PNG row filters undone, ``native/_jpeg.cpp``, the JPEG codec
-(baseline and progressive decoding), ``native/_tiff.cpp``, TIFF's LZW and
-PackBits decoders, ``native/_bmp.cpp``, BMP's RLE decoder, and
-``native/_fax.cpp``, TIFF's CCITT decoders, ``native/_gif.cpp``, GIF's
-LZW, and ``native/_webp.cpp``, the WebP decoder (VP8L, VP8 and alpha).
-
-Pointers and the stream are passed as ``c_void_p``, integers as ``c_int``
-(``c_longlong`` for sizes of the host libraries), floats as ``c_float`` or
-``c_double``; every kernel's C entry returns ``cudaGetLastError()`` of its
-launches, which the caller turns into an exception, and the host entries
-return 0 or an error code.
+The module that calls a library declares it as a :class:`Library`, with
+the ctypes signatures of the C entries it calls. Nothing is built at
+import. A CUDA entry takes the device's index and a stream last and
+returns ``cudaGetLastError()`` of its launches, which
+:meth:`Library.launch` turns into a ``RuntimeError``; a host entry
+returns 0 or an error code, which its caller reads.
 """
 
 import ctypes
-import functools
 import hashlib
 import os
 import pathlib
 import shutil
 import subprocess
 
-_CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
-BUILD_DIR = _CSRC.parents[1] / "build" / "simplestereo_tpu_torch"
+import torch
+
+_PACKAGE = pathlib.Path(__file__).resolve().parent
+_CSRC = _PACKAGE / "csrc"
+_NATIVE = _PACKAGE / "native"
+BUILD_DIR = _PACKAGE.parent / "build" / "simplestereo_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
-
 GXX_FLAGS = ("-O2", "-shared", "-fPIC", "-std=c++17", "-pthread")
-# Host libraries: name -> source, built with g++ and GXX_FLAGS.
-HOST_SOURCES = {"ply": _CSRC.parent / "native" / "_ply.cpp",
-                "png": _CSRC.parent / "native" / "_png.cpp",
-                "jpeg": _CSRC.parent / "native" / "_jpeg.cpp",
-                "tiff": _CSRC.parent / "native" / "_tiff.cpp",
-                "bmp": _CSRC.parent / "native" / "_bmp.cpp",
-                "fax": _CSRC.parent / "native" / "_fax.cpp",
-                "gif": _CSRC.parent / "native" / "_gif.cpp",
-                "webp": _CSRC.parent / "native" / "_webp.cpp"}
-
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_L, _D, _S = ctypes.c_longlong, ctypes.c_double, ctypes.c_char_p
-# C signatures, by library: {function: (argtypes, restype)}.
-_SIGNATURES = {
-    "asw_kernel": {
-        # planes, prox, cost, dispL, dispR, csub,
-        # B, H, W, Hp, Wp, x0, win, step, min_disp, D, inv_gc,
-        # chunk, jg, smem, device, stream
-        "asw_pass": ([_P] * 6 + [_I] * 10 + [_F] + [_I] * 4 + [_P], _I),
-        # chunk, smem, device, info (int[3])
-        "asw_occupancy": ([_I, _I, _I, _P], _I),
-        "asw_error_string": ([_I], ctypes.c_char_p),
-    },
-    "sgm_kernel": {
-        # C, S, work, B, H, W, D, P1, P2, paths, mode, npl, group, vec,
-        # device, stream
-        "sgm_aggregate": ([_P] * 3 + [_I] * 4 + [_F] * 2 + [_I] * 6 + [_P],
-                          _I),
-        # C, L, carry, B, H, W, D, P1, P2, dir0, ndir, dir_step,
-        # slot_stride, npl, group, vec, device, stream
-        "sgm_scan": ([_P] * 3 + [_I] * 4 + [_F] * 2 + [_I] * 3 + [_L]
-                     + [_I] * 4 + [_P], _I),
-        # L, S, vol, stride, nbuf, device, stream
-        "sgm_sum": ([_P] * 2 + [_L] * 2 + [_I] * 2 + [_P], _I),
-        # gray1, gray2, rows, codes, C, B, H, W, min_disp, D, win, block,
-        # device, stream
-        "sgm_census_cost": ([_P] * 5 + [_I] * 8 + [_P], _I),
-        # S, out, keys, disps, B, H, W, D, min_disp, uniq_factor, uniq,
-        # lr_max, subpixel, nj, group, device, stream
-        "sgm_post": ([_P] * 4 + [_I] * 5 + [_F] + [_I] * 6 + [_P], _I),
-        "sgm_error_string": ([_I], ctypes.c_char_p),
-    },
-    "gsw_kernel": {
-        # planes, vol, disp, cost, B, C, H, W, Hp, Wp, win, step, min_disp,
-        # D, gamma, f_max, normalize, ext_vol, nd, smem, device, stream
-        "gsw_pass": ([_P] * 4 + [_I] * 10 + [_F] * 2 + [_I] * 5 + [_P], _I),
-        # nd, normalize, smem, device, info (int[3])
-        "gsw_occupancy": ([_I] * 4 + [_P], _I),
-        "gsw_error_string": ([_I], ctypes.c_char_p),
-    },
-    "rotate_kernel": {
-        # x, shifts, out, N, R, W, device, stream
-        "rotate_planes": ([_P] * 3 + [_I] * 4 + [_P], _I),
-        "rotate_error_string": ([_I], ctypes.c_char_p),
-    },
-    "iir_unwrap_kernel": {
-        # phase, out, H, W, tau, double, warps_per_cta, ctas, chunk, slots,
-        # smem, device, stream
-        "iir_unwrap": ([_P] * 2 + [_I] * 2 + [_D] + [_I] * 7 + [_P], _I),
-        # mismatches (uint64[2]), device, stream: div3 against the IEEE
-        # division (every float in range, 2^30 doubles)
-        "iir_div3_check": ([_P, _I, _P], _I),
-        "iir_error_string": ([_I], ctypes.c_char_p),
-    },
-    "thomas_kernel": {
-        # conf, w, u, out, B, H, W, along_y, lam, eps, segment, lines,
-        # stride, smem, device, stream
-        "thomas_solve": ([_P] * 4 + [_I] * 4 + [_F] * 2 + [_I] * 5 + [_P],
-                         _I),
-        "thomas_error_string": ([_I], ctypes.c_char_p),
-    },
-    "speckle_kernel": {
-        # disp, out, label, count, B, H, W, m, size, new_val, device, stream
-        "speckle_filter": ([_P] * 4 + [_I] * 7 + [_P], _I),
-        "speckle_error_string": ([_I], ctypes.c_char_p),
-    },
-    "ply": {
-        # path, header, header_len, xyz, n, mode, rgb, vals, as_int,
-        # precision
-        "ply_write": ([_S, _S, _L, _P, _L, _I, _P, _P, _I, _I], _I),
-        # path, n_skip, n_rows, n_cols, out
-        "ply_read": ([_S, _L, _L, _L, _P], _I),
-    },
-    "png": {
-        # in, height, stride, bpp, out
-        "png_unfilter": ([_P, _L, _L, _I, _P], _L),
-    },
-    "jpeg": {
-        # data, n, info (int[3])
-        "jpeg_header": ([_P, _L, _P], _I),
-        # data, n, out, cap, bgr, colour
-        "jpeg_decode": ([_P, _L, _P, _L, _I, _I], _I),
-        # img, h, w, c, bgr, quality, hs, vs, out, cap
-        "jpeg_encode": ([_P] + [_I] * 7 + [_P, _L], _L),
-        "jpeg_error": ([], ctypes.c_char_p),
-    },
-    "tiff": {
-        # in, n, out, cap
-        "tiff_lzw": ([_P, _L, _P, _L], _L),
-        "tiff_packbits": ([_P, _L, _P, _L], _L),
-        "tiff_error": ([], ctypes.c_char_p),
-    },
-    "bmp": {
-        # in, n, start, rle4, width, out, cap
-        "bmp_rle": ([_P, _L, _L, _I, _L, _P, _L], _L),
-    },
-    "fax": {
-        # in, n, compression, t4options, width, rows, out, stride
-        "tiff_fax": ([_P, _L, _I, _I, _I, _I, _P, _L], _L),
-        "tiff_fax_error": ([], ctypes.c_char_p),
-    },
-    "gif": {
-        # in, n, min_size, out, cap
-        "gif_lzw": ([_P, _L, _I, _P, _L], _L),
-    },
-    "webp": {
-        # data, n, info (int[3])
-        "webp_info": ([_P, _L, _P], _I),
-        # data, n, out
-        "webp_decode": ([_P, _L, _P], _I),
-        "webp_error": ([], ctypes.c_char_p),
-    },
-}
-
 
 # CUDA's limits on a grid's extents; the matchers' kernels put the frames
 # of a stack on y or z.
@@ -197,6 +48,13 @@ def frame_pieces(B, per_launch):
     if per_launch < 1:
         raise ValueError(f"per_launch must be >= 1, got {per_launch}")
     return [(b, min(b + per_launch, B)) for b in range(0, B, per_launch)]
+
+
+def library_names():
+    """(CUDA, host): the names of the libraries in ``csrc/`` and in
+    ``native/``, sorted."""
+    return (sorted(p.stem for p in _CSRC.glob("*.cu")),
+            sorted(p.stem[1:] for p in _NATIVE.glob("_*.cpp")))
 
 
 def _nvcc():
@@ -219,18 +77,17 @@ def _gxx():
     return found
 
 
-def _compiler(name):
-    """The compiler and flags that build ``name``."""
-    if name in HOST_SOURCES:
-        return [_gxx(), *GXX_FLAGS]
-    return [_nvcc(), *NVCC_FLAGS]
+def _flags(src):
+    return NVCC_FLAGS if src.suffix == ".cu" else GXX_FLAGS
 
 
 def _library_path(name):
-    src = HOST_SOURCES.get(name, _CSRC / f"{name}.cu")
-    flags = GXX_FLAGS if name in HOST_SOURCES else NVCC_FLAGS
+    """(source, build) of the library ``name``."""
+    src = _CSRC / f"{name}.cu"
+    if not src.exists():
+        src = _NATIVE / f"_{name}.cpp"
     h = hashlib.sha256(src.read_bytes())
-    h.update(" ".join(flags).encode())
+    h.update(" ".join(_flags(src)).encode())
     return src, BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
@@ -243,11 +100,11 @@ def compile_log(name):
 
 
 def build(names):
-    """Compile each ``csrc/<name>.cu`` (or host source of ``HOST_SOURCES``)
-    of ``names`` whose build is missing: one compiler per source, all
-    started together, so a cold build of every library takes as long as
-    the slowest source rather than their sum.
-    Returns when every one has finished; raises if any failed."""
+    """Compile the source of each library of ``names`` whose build is
+    missing: one compiler per source, all started together, so a cold
+    build of every library takes as long as the slowest source rather
+    than their sum. Returns when every one has finished; raises if any
+    failed."""
     jobs = []
     for name in names:
         src, lib_path = _library_path(name)
@@ -256,9 +113,10 @@ def build(names):
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
         log = lib_path.with_suffix(f".{os.getpid()}.tmplog")
+        compiler = _nvcc() if src.suffix == ".cu" else _gxx()
         with open(log, "w") as out:
             proc = subprocess.Popen(
-                [*_compiler(name), "-o", str(tmp), str(src)],
+                [compiler, *_flags(src), "-o", str(tmp), str(src)],
                 stdout=out, stderr=subprocess.STDOUT)
         jobs.append((src, lib_path, tmp, log, proc))
     failed = []
@@ -275,13 +133,55 @@ def build(names):
         raise RuntimeError("\n".join(failed))
 
 
-@functools.cache
-def load_library(name):
-    """Build ``csrc/<name>.cu`` (or the host source ``name``) if its build
-    is missing, load it, and set the ctypes signatures of its C entries."""
-    build([name])
-    lib = ctypes.CDLL(str(_library_path(name)[1]))
-    for fn, (argtypes, restype) in _SIGNATURES[name].items():
+def bind(lib, signatures):
+    """Set the ctypes signatures ``{entry: (argtypes, restype)}`` on the
+    loaded library ``lib``; returns it."""
+    for fn, (argtypes, restype) in signatures.items():
         getattr(lib, fn).argtypes = argtypes
         getattr(lib, fn).restype = restype
     return lib
+
+
+class Library:
+    """A library of the package as its caller declares it: ``name`` and
+    the ctypes signatures ``{entry: (argtypes, restype)}`` of the C
+    entries it calls. One module declares a library, once."""
+
+    def __init__(self, name, signatures):
+        self.name, self.signatures = name, signatures
+        self.loaded = None  # the ctypes library once load() has run
+
+    def load(self):
+        """The library, built if its build is missing, loaded once."""
+        if self.loaded is None:
+            build([self.name])
+            self.loaded = bind(ctypes.CDLL(str(_library_path(self.name)[1])),
+                               self.signatures)
+        return self.loaded
+
+    def _call(self, entry, args, what):
+        lib = self.load()
+        err = getattr(lib, entry)(*args)
+        if err != 0:
+            error = next(e for e in self.signatures
+                         if e.endswith("_error_string"))
+            raise RuntimeError(f"{what}: {getattr(lib, error)(err).decode()}")
+
+    def launch(self, entry, device, *args, what):
+        """Call the CUDA ``entry`` with ``args``, then ``device``'s index
+        and its current stream; a nonzero return raises ``RuntimeError``
+        with ``what``, a colon and the CUDA error's text."""
+        stream = torch.cuda.current_stream(device).cuda_stream
+        self._call(entry, (*args, device.index, stream), what)
+
+    def occupancy(self, entry, device, *args, what):
+        """(registers a thread, spill bytes a thread, blocks resident per
+        SM) of a kernel, from the occupancy ``entry`` called with ``args``,
+        the index of ``device`` (default the current CUDA device) and an
+        int[3] it fills; raises as :meth:`launch` does."""
+        dev = torch.device("cuda" if device is None else device)
+        idx = torch.cuda.current_device() if dev.index is None else dev.index
+        info = (ctypes.c_int * 3)()
+        self._call(entry, (*args, idx, ctypes.cast(info, ctypes.c_void_p)),
+                   what)
+        return tuple(info)

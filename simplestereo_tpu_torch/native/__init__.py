@@ -16,17 +16,66 @@ decode in a :class:`..utils.Capture` grab thread leaves the other threads
 running.
 
 Each source has a plain C interface, so it needs no ``Python.h``: ``g++``
-builds it in about a second (:mod:`.._build`, ``HOST_SOURCES``) into
+builds it in about a second (:mod:`.._build`) into
 ``build/simplestereo_tpu_torch/lib<name>-<hash>.so`` at the root of the
 checkout, and ctypes loads it. A failed build raises with the compiler's
 log; nothing falls back to Python code.
 """
 
+import ctypes
 import os
 
 import numpy as np
 
 from .. import _build
+
+_P, _I, _S = ctypes.c_void_p, ctypes.c_int, ctypes.c_char_p
+_L = ctypes.c_longlong
+_PLY = _build.Library("ply", {
+    # path, header, header_len, xyz, n, mode, rgb, vals, as_int, precision
+    "ply_write": ([_S, _S, _L, _P, _L, _I, _P, _P, _I, _I], _I),
+    # path, n_skip, n_rows, n_cols, out
+    "ply_read": ([_S, _L, _L, _L, _P], _I),
+})
+_PNG = _build.Library("png", {
+    # in, height, stride, bpp, out
+    "png_unfilter": ([_P, _L, _L, _I, _P], _L),
+})
+_JPEG = _build.Library("jpeg", {
+    # data, n, info (int[3])
+    "jpeg_header": ([_P, _L, _P], _I),
+    # data, n, out, cap, bgr, colour
+    "jpeg_decode": ([_P, _L, _P, _L, _I, _I], _I),
+    # img, h, w, c, bgr, quality, hs, vs, out, cap
+    "jpeg_encode": ([_P] + [_I] * 7 + [_P, _L], _L),
+    "jpeg_error": ([], _S),
+})
+_TIFF = _build.Library("tiff", {
+    # in, n, out, cap
+    "tiff_lzw": ([_P, _L, _P, _L], _L),
+    "tiff_packbits": ([_P, _L, _P, _L], _L),
+    "tiff_error": ([], _S),
+})
+_BMP = _build.Library("bmp", {
+    # in, n, start, rle4, width, out, cap
+    "bmp_rle": ([_P, _L, _L, _I, _L, _P, _L], _L),
+})
+_FAX = _build.Library("fax", {
+    # in, n, compression, t4options, width, rows, out, stride
+    "tiff_fax": ([_P, _L, _I, _I, _I, _I, _P, _L], _L),
+    "tiff_fax_error": ([], _S),
+})
+_GIF = _build.Library("gif", {
+    # in, n, min_size, out, cap
+    "gif_lzw": ([_P, _L, _I, _P, _L], _L),
+})
+_WEBP = _build.Library("webp", {
+    # data, n, info (int[3])
+    "webp_info": ([_P, _L, _P], _I),
+    # data, n, out
+    "webp_decode": ([_P, _L, _P], _I),
+    "webp_error": ([], _S),
+})
 
 
 def _raise(err, what, path):
@@ -40,7 +89,7 @@ def write_ply(path, header, xyz, rgb=None, vals=None, as_int=False,
     """Write ``header`` (bytes) then one line per point of ``xyz`` ((n, 3)
     float64), with ``rgb`` ((n, 3) uint8) or ``vals`` ((n,) float64,
     printed as integers when ``as_int``) after the coordinates."""
-    lib = _build.load_library("ply")
+    lib = _PLY.load()
     xyz = np.ascontiguousarray(xyz, np.float64).reshape(-1, 3)
     mode, extra = 0, None
     if rgb is not None:
@@ -63,7 +112,7 @@ def write_ply(path, header, xyz, rgb=None, vals=None, as_int=False,
 def read_ply(path, n_skip, n_rows, n_cols):
     """(n_rows, n_cols) float64 array of the numbers on the n_rows lines
     after the first ``n_skip`` lines of ``path``."""
-    lib = _build.load_library("ply")
+    lib = _PLY.load()
     out = np.empty((n_rows, n_cols), np.float64)
     err = lib.ply_read(os.fsencode(path), n_skip, n_rows, n_cols,
                        out.ctypes.data)
@@ -78,7 +127,7 @@ def png_unfilter(data, height, stride, bpp):
     ``stride`` filtered bytes). ``bpp`` is the filters' unit, the bytes of
     one pixel rounded up: 1 to 8 (RGBA at 16 bits), and 1 for depths
     below 8 bits."""
-    lib = _build.load_library("png")
+    lib = _PNG.load()
     raw = np.frombuffer(data, np.uint8)
     if raw.size != height * (stride + 1):
         raise ValueError(f"PNG data holds {raw.size} bytes, expected "
@@ -96,7 +145,7 @@ def tiff_decompress(data, size, packbits=False):
     """The first ``size`` bytes that one TIFF strip or tile of LZW (or,
     with ``packbits``, PackBits) bytes ``data`` decodes to; fewer when the
     data ends first."""
-    lib = _build.load_library("tiff")
+    lib = _TIFF.load()
     out = np.empty(size, np.uint8)
     fn = lib.tiff_packbits if packbits else lib.tiff_lzw
     n = fn(data, len(data), out.ctypes.data, size)
@@ -110,7 +159,7 @@ def tiff_fax(data, compression, width, rows, t4options=0):
     data (``compression`` 2, 3 or 4; ``FillOrder`` 1), the bits of black
     runs set, as libtiff decodes it. Rows that the data does not reach
     are white, as in libtiff."""
-    lib = _build.load_library("fax")
+    lib = _FAX.load()
     stride = (width + 7) // 8
     out = np.empty((rows, stride), np.uint8)
     n = lib.tiff_fax(data, len(data), int(compression), int(t4options),
@@ -125,7 +174,7 @@ def gif_lzw(data, min_size, out):
     its minimum code size ``min_size``) into the uint8 array ``out``;
     returns the indices written (fewer than ``out.size`` when the data
     ends first)."""
-    lib = _build.load_library("gif")
+    lib = _GIF.load()
     n = lib.gif_lzw(data, len(data), int(min_size), out.ctypes.data,
                     out.size)
     if n < 0:
@@ -137,7 +186,7 @@ def webp_decode(data):
     """(RGBA (H, W, 4) uint8, alpha) of WebP bytes: the first frame on
     its canvas, as libwebp's animation decoder draws it for Pillow;
     ``alpha`` says whether Pillow opens the file as RGBA (else RGB)."""
-    lib = _build.load_library("webp")
+    lib = _WEBP.load()
     info = np.zeros(3, np.int32)
     if lib.webp_info(data, len(data), info.ctypes.data):
         raise ValueError(f"WebP: {lib.webp_error().decode()}")
@@ -153,7 +202,7 @@ def bmp_rle(data, start, rle4, width, height):
     stream ``data`` in stored row order, as Pillow decodes it; ``start``
     is the stream's offset in the file. A stream that ends before the
     image is filled raises, as in Pillow."""
-    lib = _build.load_library("bmp")
+    lib = _BMP.load()
     out = np.empty((height, width), np.uint8)
     n = lib.bmp_rle(data, len(data), start, int(bool(rle4)), width,
                     out.ctypes.data, out.size)
@@ -171,7 +220,7 @@ def _jpeg_fail(lib):
 
 def _jpeg_header(data):
     """(height, width, components) of the JPEG bytes ``data``."""
-    lib = _build.load_library("jpeg")
+    lib = _JPEG.load()
     info = np.zeros(3, np.int32)
     if lib.jpeg_header(data, len(data), info.ctypes.data):
         _jpeg_fail(lib)
@@ -189,7 +238,7 @@ def jpeg_decode(data, bgr=True, colour="auto"):
     and lossless frames decode. Raises ``ValueError`` on malformed data
     and on what the codec leaves out (hierarchical frames, samples of
     other than 8 bits, lossless with subsampling), naming it."""
-    lib = _build.load_library("jpeg")
+    lib = _JPEG.load()
     h, w, c = _jpeg_header(data)
     out = np.empty((h, w, c) if c > 1 else (h, w), np.uint8)
     if lib.jpeg_decode(data, len(data), out.ctypes.data, out.nbytes,
@@ -205,7 +254,7 @@ def jpeg_encode(image, quality=75, bgr=True, sampling=(2, 2)):
     (horizontal, vertical) factors against chroma's 1x1: (2, 2) is 4:2:0,
     Pillow's default, (2, 1) 4:2:2, (1, 2) 4:4:0 and (1, 1) 4:4:4; any
     factors of 1 to 4 with at most 8 luma blocks (4:1:1 is (4, 1))."""
-    lib = _build.load_library("jpeg")
+    lib = _JPEG.load()
     img = np.ascontiguousarray(image, np.uint8)
     if img.ndim == 3 and img.shape[2] == 1:
         img = np.ascontiguousarray(img[:, :, 0])

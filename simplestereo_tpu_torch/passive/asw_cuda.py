@@ -30,6 +30,8 @@ directions (see :mod:`.asw_ref` for where that differs from the JAX
 package at negative ``min_disp``).
 """
 
+import ctypes
+
 import torch
 import torch.nn.functional as F
 
@@ -40,6 +42,17 @@ from .lab import bgr_to_lab
 
 TAD_CAP = 40.0
 LAB_SENTINEL = 1.0e6  # exp(-sentinel/gammaC) underflows to exactly 0.0
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+LIBRARY = _build.Library("asw_kernel", {
+    # planes, prox, cost, dispL, dispR, csub,
+    # B, H, W, Hp, Wp, x0, win, step, min_disp, D, inv_gc,
+    # chunk, jg, smem, device, stream
+    "asw_pass": ([_P] * 6 + [_I] * 10 + [_F] + [_I] * 4 + [_P], _I),
+    # chunk, smem, device, info (int[3])
+    "asw_occupancy": ([_I, _I, _I, _P], _I),
+    "asw_error_string": ([_I], ctypes.c_char_p),
+})
 
 # Kernel launches made by _asw_pass (CPU calls of the plain twin do not
 # count): lets a caller prove that a run went through the kernel.
@@ -120,17 +133,8 @@ def _plan(win_size, step, D, B, H, W, budgets=SMEM_BUDGETS):
 def occupancy(plan, device=None):
     """(registers a thread, spill bytes a thread, blocks resident per SM)
     of the cost kernel that ``plan`` launches, from the CUDA runtime."""
-    import ctypes
-    dev = torch.device("cuda") if device is None else torch.device(device)
-    idx = dev.index if dev.index is not None else torch.cuda.current_device()
-    info = (ctypes.c_int * 3)()
-    lib = _build.load_library("asw_kernel")
-    err = lib.asw_occupancy(plan["chunk"], plan["smem"], idx,
-                             ctypes.cast(info, ctypes.c_void_p))
-    if err != 0:
-        raise RuntimeError("ASW occupancy query failed: "
-                           + lib.asw_error_string(err).decode())
-    return tuple(info)
+    return LIBRARY.occupancy("asw_occupancy", device, plan["chunk"],
+                             plan["smem"], what="ASW occupancy query failed")
 
 
 def _pads(win_size, min_disp, max_disp):
@@ -245,21 +249,17 @@ def _asw_pass(planes, *, H, W, win_size, min_disp, max_disp, gamma_c,
     csub = (torch.empty((B, 3, H, W), dtype=torch.float32, device=dev)
             if subpixel else None)
 
-    lib = _build.load_library("asw_kernel")
-    stream = torch.cuda.current_stream(dev).cuda_stream
     hw = H * W * 4  # bytes of one (H, W) float32 or int32 map
     for b0, b1 in _build.frame_pieces(B, plan["frames"]):
-        err = lib.asw_pass(
+        LIBRARY.launch(
+            "asw_pass", dev,
             planes.data_ptr() + b0 * 12 * Hp * Wp * 4, prox.data_ptr(),
             cost.data_ptr() + b0 * D * hw, dispL.data_ptr() + b0 * hw,
             None if dispR is None else dispR.data_ptr() + b0 * hw,
             None if csub is None else csub.data_ptr() + b0 * 3 * hw,
             b1 - b0, H, W, Hp, Wp, left, win_size, step, min_disp, D,
             1.0 / float(gamma_c), plan["chunk"], plan["jg"], plan["smem"],
-            dev.index, stream)
-        if err != 0:
-            raise RuntimeError("ASW kernel launch failed: "
-                               + lib.asw_error_string(err).decode())
+            what="ASW kernel launch failed")
     launches += 1
     return cost, dispL, dispR, csub
 

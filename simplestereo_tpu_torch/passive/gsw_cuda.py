@@ -26,6 +26,8 @@ the joint histogram of the previous matching (:mod:`.gsw`) and hands it
 to the same kernel (``ext_vol``): only the window aggregation runs there.
 """
 
+import ctypes
+
 import torch
 import torch.nn.functional as F
 
@@ -33,6 +35,16 @@ from .. import _build
 from .asw_cuda import _check_planes
 from .asw_ref import lr_check, occlusion_fill  # noqa: F401
 from .gsw import _argmin_disp, _gsw_cost, _mi_volume, _quantize_gray
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+LIBRARY = _build.Library("gsw_kernel", {
+    # planes, vol, disp, cost, B, C, H, W, Hp, Wp, win, step, min_disp,
+    # D, gamma, f_max, normalize, ext_vol, nd, smem, device, stream
+    "gsw_pass": ([_P] * 4 + [_I] * 10 + [_F] * 2 + [_I] * 5 + [_P], _I),
+    # nd, normalize, smem, device, info (int[3])
+    "gsw_occupancy": ([_I] * 4 + [_P], _I),
+    "gsw_error_string": ([_I], ctypes.c_char_p),
+})
 
 BGR_SENTINEL = 1.0e6  # exp(-||sentinel - c|| / gamma) underflows to 0.0
 
@@ -104,19 +116,11 @@ def _plan(win_size, step, D, B, H, W, ext_vol=False, budgets=(SMEM_MAX,)):
 def occupancy(plan, normalize=False, device=None):
     """(registers a thread, spill bytes a thread, blocks resident per SM)
     of the tile kernel that ``plan`` launches, from the CUDA runtime."""
-    import ctypes
     if plan["path"] != "tile":
         raise ValueError("occupancy is reported for the tile path only")
-    dev = torch.device("cuda") if device is None else torch.device(device)
-    idx = dev.index if dev.index is not None else torch.cuda.current_device()
-    info = (ctypes.c_int * 3)()
-    lib = _build.load_library("gsw_kernel")
-    err = lib.gsw_occupancy(plan["nd"], int(bool(normalize)), plan["smem"],
-                            idx, ctypes.cast(info, ctypes.c_void_p))
-    if err != 0:
-        raise RuntimeError("GSW occupancy query failed: "
-                           + lib.gsw_error_string(err).decode())
-    return tuple(info)
+    return LIBRARY.occupancy("gsw_occupancy", device, plan["nd"],
+                             int(bool(normalize)), plan["smem"],
+                             what="GSW occupancy query failed")
 
 
 def _pack_planes(chw, win_size, fill):
@@ -193,20 +197,17 @@ def _gsw_pass(planes, *, H, W, win_size, min_disp, max_disp, gamma, f_max,
     cost = (torch.empty((B, D, H, W), dtype=torch.float32, device=dev)
             if return_cost else None)
 
-    lib = _build.load_library("gsw_kernel")
-    stream = torch.cuda.current_stream(dev).cuda_stream
     for b0, b1 in _build.frame_pieces(B, plan["frames"]):
-        err = lib.gsw_pass(
+        LIBRARY.launch(
+            "gsw_pass", dev,
             planes.data_ptr() + b0 * C * Hp * Wp * 4,
             None if vol is None else vol.data_ptr(),
             disp.data_ptr() + b0 * H * W * 4,
             None if cost is None else cost.data_ptr() + b0 * D * H * W * 4,
             b1 - b0, C, H, W, Hp, Wp, win_size, step, min_disp, D,
             float(gamma), float(f_max), int(bool(normalize)),
-            int(bool(ext_vol)), plan["nd"], plan["smem"], dev.index, stream)
-        if err != 0:
-            raise RuntimeError("GSW kernel launch failed: "
-                               + lib.gsw_error_string(err).decode())
+            int(bool(ext_vol)), plan["nd"], plan["smem"],
+            what="GSW kernel launch failed")
     launches += 1
     return disp, cost
 

@@ -38,11 +38,33 @@ code of :mod:`.sgm` (``_census_cost``, ``_edge_fill_rows`` and
 ``sgm_post_kernel``, whose twin is ``sgm._sgm_post_plain``.
 """
 
+import ctypes
 import math
 
 import torch
 
 from .. import _build
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_L = ctypes.c_longlong
+LIBRARY = _build.Library("sgm_kernel", {
+    # C, S, work, B, H, W, D, P1, P2, paths, mode, npl, group, vec,
+    # device, stream
+    "sgm_aggregate": ([_P] * 3 + [_I] * 4 + [_F] * 2 + [_I] * 6 + [_P], _I),
+    # C, L, carry, B, H, W, D, P1, P2, dir0, ndir, dir_step,
+    # slot_stride, npl, group, vec, device, stream
+    "sgm_scan": ([_P] * 3 + [_I] * 4 + [_F] * 2 + [_I] * 3 + [_L]
+                 + [_I] * 4 + [_P], _I),
+    # L, S, vol, stride, nbuf, device, stream
+    "sgm_sum": ([_P] * 2 + [_L] * 2 + [_I] * 2 + [_P], _I),
+    # gray1, gray2, rows, codes, C, B, H, W, min_disp, D, win, block,
+    # device, stream
+    "sgm_census_cost": ([_P] * 5 + [_I] * 8 + [_P], _I),
+    # S, out, keys, disps, B, H, W, D, min_disp, uniq_factor, uniq,
+    # lr_max, subpixel, nj, group, device, stream
+    "sgm_post": ([_P] * 4 + [_I] * 5 + [_F] + [_I] * 6 + [_P], _I),
+    "sgm_error_string": ([_I], ctypes.c_char_p),
+})
 
 # Calls of aggregate that launched the kernel, one per call: a call
 # launches one kernel per direction (4 or 8), or one for all directions and
@@ -345,17 +367,14 @@ def aggregate(C, P1, P2, paths, plan=None, *, directions=None, carry=None,
     vec = plan["vec"] and C.data_ptr() % 16 == 0
     mode = MODES.index(plan["mode"])
     frame = H * W * D * 4
-    lib = _build.load_library("sgm_kernel")
-    stream = torch.cuda.current_stream(dev).cuda_stream
     for b0, b1 in _build.frame_pieces(B, plan["frames"]):
-        err = lib.sgm_aggregate(
+        LIBRARY.launch(
+            "sgm_aggregate", dev,
             C.data_ptr() + b0 * frame, S.data_ptr() + b0 * frame,
             None if work is None else work.data_ptr(), b1 - b0, H, W, D,
             float(P1), float(P2), 8 if paths >= 8 else 4, mode,
-            plan["npl"], plan["group"], int(vec), dev.index, stream)
-        if err != 0:
-            raise RuntimeError("SGM kernel launch failed: "
-                               + lib.sgm_error_string(err).decode())
+            plan["npl"], plan["group"], int(vec),
+            what="SGM kernel launch failed")
     launches += 1
     return S
 
@@ -375,19 +394,15 @@ def _scan_family(C, P1, P2, paths, plan, directions, carry, out):
     vec = (plan["vec"] and C.data_ptr() % 16 == 0
            and out.data_ptr() % 16 == 0)
     frame = H * W * D
-    lib = _build.load_library("sgm_kernel")
-    stream = torch.cuda.current_stream(dev).cuda_stream
     for b0, b1 in _build.frame_pieces(B, _build.GRID_YZ_MAX):
-        err = lib.sgm_scan(
+        LIBRARY.launch(
+            "sgm_scan", dev,
             C.data_ptr() + b0 * frame * 4,
             out.data_ptr() + (dir0 * B + b0) * frame * 4,
             None if carry is None else carry.data_ptr() + b0 * n * W * D * 4,
             b1 - b0, H, W, D, float(P1), float(P2), dir0, n, step,
             step * B * frame, plan["npl"], plan["group"], int(vec),
-            dev.index, stream)
-        if err != 0:
-            raise RuntimeError("SGM kernel launch failed: "
-                               + lib.sgm_error_string(err).decode())
+            what="SGM kernel launch failed")
     launches += 1
     return out
 
@@ -409,12 +424,8 @@ def sum_paths(L):
     dev = L.device
     S = torch.empty_like(L[0])
     vol = L[0].numel()
-    lib = _build.load_library("sgm_kernel")
-    err = lib.sgm_sum(L.data_ptr(), S.data_ptr(), vol, vol, L.shape[0],
-                      dev.index, torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError("SGM kernel launch failed: "
-                           + lib.sgm_error_string(err).decode())
+    LIBRARY.launch("sgm_sum", dev, L.data_ptr(), S.data_ptr(), vol, vol,
+                   L.shape[0], what="SGM kernel launch failed")
     launches += 1
     return S
 
@@ -466,19 +477,15 @@ def census_cost(gray1, gray2, min_disp, num_disp, census_window,
     g2 = gray2.reshape(B, H, W).contiguous()
     codes = torch.empty((B, 2, H, W), dtype=torch.int64, device=dev)
     C = torch.empty((B, H, W, D), dtype=torch.float32, device=dev)
-    lib = _build.load_library("sgm_kernel")
-    stream = torch.cuda.current_stream(dev).cuda_stream
     frame = H * W
     for b0, b1 in _build.frame_pieces(B, _build.GRID_YZ_MAX):
-        err = lib.sgm_census_cost(
+        LIBRARY.launch(
+            "sgm_census_cost", dev,
             g1.data_ptr() + b0 * frame * 4, g2.data_ptr() + b0 * frame * 4,
             None if rows is None else rows.data_ptr(),
             codes.data_ptr() + b0 * 2 * frame * 8,
             C.data_ptr() + b0 * frame * D * 4, b1 - b0, H, W, min_disp, D,
-            census_window, block_size, dev.index, stream)
-        if err != 0:
-            raise RuntimeError("census kernel launch failed: "
-                               + lib.sgm_error_string(err).decode())
+            census_window, block_size, what="census kernel launch failed")
     census_launches += 1
     return C.reshape(*lead, H, W, D)
 
@@ -529,18 +536,14 @@ def post(S, min_disp, num_disp, uniqueness, disp12_max_diff, subpixel):
                            dtype=torch.int64, device=dev)
         disps = torch.empty(keys.shape, dtype=torch.int32, device=dev)
     nj, group = _post_plan(D)
-    lib = _build.load_library("sgm_kernel")
-    stream = torch.cuda.current_stream(dev).cuda_stream
     frame = H * W
     for b0, b1 in _build.frame_pieces(B, _build.GRID_YZ_MAX):
-        err = lib.sgm_post(
+        LIBRARY.launch(
+            "sgm_post", dev,
             S.data_ptr() + b0 * frame * D * 4, out.data_ptr() + b0 * frame * 2,
             None if keys is None else keys.data_ptr(),
             None if disps is None else disps.data_ptr(), b1 - b0, H, W, D,
             min_disp, 100.0 + uniqueness, int(uniqueness > 0), lr_max,
-            int(subpixel), nj, group, dev.index, stream)
-        if err != 0:
-            raise RuntimeError("SGM post kernel launch failed: "
-                               + lib.sgm_error_string(err).decode())
+            int(subpixel), nj, group, what="SGM post kernel launch failed")
     post_launches += 1
     return out

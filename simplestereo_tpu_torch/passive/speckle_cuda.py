@@ -14,11 +14,19 @@ takes these kernels, a numpy or CPU map the host function. There is no
 TPU kernel behind this one: the JAX package filters on the host.
 """
 
+import ctypes
 import math
 
 import torch
 
 from .. import _build
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+LIBRARY = _build.Library("speckle_kernel", {
+    # disp, out, label, count, B, H, W, m, size, new_val, device, stream
+    "speckle_filter": ([_P] * 4 + [_I] * 7 + [_P], _I),
+    "speckle_error_string": ([_I], ctypes.c_char_p),
+})
 
 # Calls of filter_speckles (each launches the four kernels, or four a piece
 # of 65,535 frames). Lets a caller prove that a run filtered on the card.
@@ -58,17 +66,13 @@ def filter_speckles(disp, new_val, max_speckle_size, max_diff):
     m = min(max(int(max_diff), 1), 2**16)
     # a count is a whole number of at most H * W pixels
     size = min(max(math.ceil(max_speckle_size), 0), H * W + 1)
-    lib = _build.load_library("speckle_kernel")
-    stream = torch.cuda.current_stream(dev).cuda_stream
     frame = H * W
     for b0, b1 in _build.frame_pieces(B, _build.GRID_YZ_MAX):
-        err = lib.speckle_filter(
+        LIBRARY.launch(
+            "speckle_filter", dev,
             d.data_ptr() + b0 * frame * 2, out.data_ptr() + b0 * frame * 2,
             label.data_ptr() + b0 * frame * 4,
             count.data_ptr() + b0 * frame * 4, b1 - b0, H, W, m, size,
-            int(new_val), dev.index, stream)
-        if err != 0:
-            raise RuntimeError("speckle kernel launch failed: "
-                               + lib.speckle_error_string(err).decode())
+            int(new_val), what="speckle kernel launch failed")
     speckle_launches += 1
     return out.reshape(disp.shape)

@@ -28,6 +28,8 @@ device) or arrays (run on ``device``, default ``"cuda"``; a missing card
 raises), and return what they were given: a tensor or a numpy array.
 """
 
+import ctypes
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -36,6 +38,14 @@ from .. import _build
 from .._device import resolve_device
 
 __all__ = ["fast_global_smoother", "wls_filter_disparity"]
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+LIBRARY = _build.Library("thomas_kernel", {
+    # conf, w, u, out, B, H, W, along_y, lam, eps, segment, lines,
+    # stride, smem, device, stream
+    "thomas_solve": ([_P] * 4 + [_I] * 4 + [_F] * 2 + [_I] * 5 + [_P], _I),
+    "thomas_error_string": ([_I], ctypes.c_char_p),
+})
 
 # S2 kernel calls made by the solves (a stack cut into several launches by
 # the grid limit counts one call; CPU calls of the twin do not count).
@@ -292,18 +302,14 @@ def _solve(conf, w, u, lam_t, along_y):
     out = torch.empty_like(u)
     frame = H * W * 4
     wframe = w[0].numel() * 4
-    lib = _build.load_library("thomas_kernel")
-    stream = torch.cuda.current_stream(conf.device).cuda_stream
     for b0, b1 in plan["pieces"]:
-        err = lib.thomas_solve(
+        LIBRARY.launch(
+            "thomas_solve", conf.device,
             conf.data_ptr() + b0 * frame, w.data_ptr() + b0 * wframe,
             u.data_ptr() + b0 * frame, out.data_ptr() + b0 * frame,
             b1 - b0, H, W, int(along_y), float(lam_t), EPS, plan["segment"],
-            plan["lines"], plan["stride"], plan["smem"], conf.device.index,
-            stream)
-        if err != 0:
-            raise RuntimeError("WLS line-solve kernel launch failed: "
-                               + lib.thomas_error_string(err).decode())
+            plan["lines"], plan["stride"], plan["smem"],
+            what="WLS line-solve kernel launch failed")
     launches += 1
     return out
 

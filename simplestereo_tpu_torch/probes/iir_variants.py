@@ -100,12 +100,8 @@ def build(root):
         out = proc.communicate()[0]
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {name}:\n{out}")
-        lib = ctypes.CDLL(str(so))
-        for fn, (argtypes, restype) in \
-                _build._SIGNATURES["iir_unwrap_kernel"].items():
-            getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = restype
-        libs[name] = lib
+        libs[name] = _build.bind(ctypes.CDLL(str(so)),
+                                 unwrapping.LIBRARY.signatures)
     return libs
 
 

@@ -20,11 +20,20 @@ along its last axis by an amount read at run time.
   bit for bit.
 """
 
+import ctypes
+
 import numpy as np
 import torch
 
 from .. import _build
 from .._device import resolve_device
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+LIBRARY = _build.Library("rotate_kernel", {
+    # x, shifts, out, N, R, W, device, stream
+    "rotate_planes": ([_P] * 3 + [_I] * 4 + [_P], _I),
+    "rotate_error_string": ([_I], ctypes.c_char_p),
+})
 
 # Kernel launches made by roll_planes (CPU calls of the twin do not
 # count): lets a caller prove that a run went through the kernel.
@@ -73,13 +82,8 @@ def roll_planes(x, shifts):
     N, R, W = x.shape
     s = s.to(x.device).contiguous()
     out = torch.empty_like(x)
-    lib = _build.load_library("rotate_kernel")
-    err = lib.rotate_planes(x.data_ptr(), s.data_ptr(), out.data_ptr(), N, R,
-                            W, x.device.index,
-                            torch.cuda.current_stream(x.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError("roll kernel launch failed: "
-                           + lib.rotate_error_string(err).decode())
+    LIBRARY.launch("rotate_planes", x.device, x.data_ptr(), s.data_ptr(),
+                   out.data_ptr(), N, R, W, what="roll kernel launch failed")
     launches += 1
     return out
 

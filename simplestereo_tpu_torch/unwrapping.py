@@ -34,6 +34,7 @@ operations in the same order either way, so on the card the two agree bit
 for bit.
 """
 
+import ctypes
 import math
 
 import numpy as np
@@ -41,6 +42,18 @@ import torch
 
 from . import _build
 from ._device import resolve_device
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+LIBRARY = _build.Library("iir_unwrap_kernel", {
+    # phase, out, H, W, tau, double, warps_per_cta, ctas, chunk, slots,
+    # smem, device, stream
+    "iir_unwrap": ([_P] * 2 + [_I] * 2 + [ctypes.c_double] + [_I] * 7
+                   + [_P], _I),
+    # mismatches (uint64[2]), device, stream: div3 against the IEEE
+    # division (every float in range, 2^30 doubles)
+    "iir_div3_check": ([_P, _I, _P], _I),
+    "iir_error_string": ([_I], ctypes.c_char_p),
+})
 
 # S1 kernel launches made by infiniteImpulseResponse (CPU calls of the
 # twin do not count): lets a caller prove a run went through the kernel.
@@ -311,15 +324,11 @@ def _iir_unwrap(phase, tau, plan=None):
         plan = _plan(H, W, phase.element_size())
     phase = phase.contiguous()
     out = torch.empty_like(phase)
-    lib = _build.load_library("iir_unwrap_kernel")
-    err = lib.iir_unwrap(phase.data_ptr(), out.data_ptr(), H, W, float(tau),
-                         int(phase.dtype == torch.float64),
-                         plan["warps_per_cta"], plan["ctas"], plan["chunk"],
-                         plan["slots"], plan["smem"], phase.device.index,
-                         torch.cuda.current_stream(phase.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError("IIR unwrap kernel launch failed: "
-                           + lib.iir_error_string(err).decode())
+    LIBRARY.launch("iir_unwrap", phase.device, phase.data_ptr(),
+                   out.data_ptr(), H, W, float(tau),
+                   int(phase.dtype == torch.float64), plan["warps_per_cta"],
+                   plan["ctas"], plan["chunk"], plan["slots"], plan["smem"],
+                   what="IIR unwrap kernel launch failed")
     launches += 1
     return out
 

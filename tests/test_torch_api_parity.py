@@ -33,7 +33,7 @@ ALLOWED_MODULES = {
 ALLOWED_NAMES = {
     ("simplestereo_tpu.native", "get_ply"): (
         "builds and imports the CPython extension above; the port's host "
-        "libraries load through _build.load_library"),
+        "libraries load through _build.Library"),
 }
 MODULE_MAP = {
     "simplestereo_tpu.passive.asw_pallas": "simplestereo_tpu_torch.passive.asw_cuda",

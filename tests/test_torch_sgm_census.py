@@ -19,6 +19,7 @@ import pytest
 import torch
 
 import simplestereo_tpu_torch as tss
+from cuda_card import card  # noqa: F401 (the fixture)
 from simplestereo_tpu_torch.passive import sgm, sgm_cuda
 
 # (B, H, W, min_disp, D, census window, block size): the windows, block
@@ -183,14 +184,6 @@ def test_census_block_max_keeps_sums_exact():
 
 # -- on the card ------------------------------------------------------------
 
-@pytest.fixture
-def card():
-    """The card, or a skip: decided inside the test, never at import."""
-    if not torch.cuda.is_available():
-        pytest.skip("no CUDA card: runs on the H100 only")
-    return torch.device("cuda:0")
-
-
 def _kernel(card, g1, g2, md, D, win, k, **kw):
     before = sgm_cuda.census_launches
     got = _glue(torch.tensor(g1, device=card), torch.tensor(g2, device=card),
@@ -202,6 +195,7 @@ def _kernel(card, g1, g2, md, D, win, k, **kw):
 
 @pytest.mark.card
 @pytest.mark.parametrize("case", CASES + [
+    (1, 288, 384, 0, 16, 7, 3),      # the census configuration at 384x288
     (1, 720, 1280, 1, 96, 7, 3),     # the benchmark's shapes
     (8, 720, 1280, 1, 96, 7, 3),
     (70_000, 2, 3, 1, 13, 3, 1),     # two launches, scalar stores
@@ -266,17 +260,15 @@ def test_other_costs_and_blocks_take_the_glue(card):
 def test_entry_refuses(card, bad):
     # The C entry's own checks, past the wrapper's: C is 16-byte aligned
     # where D % 4 == 0, so an offset of 4 bytes is refused.
-    from simplestereo_tpu_torch import _build
     g = torch.zeros(3, 4, 8, device=card)
     codes = torch.empty(3, 2, 4, 8, dtype=torch.int64, device=card)
     out = torch.empty(3, 4, 8, 4, device=card)
     kw = {**dict(B=3, D=4, win=5, block=3, C=0), **bad}
-    lib = _build.load_library("sgm_kernel")
-    err = lib.sgm_census_cost(
-        g.data_ptr(), g.data_ptr(), None, codes.data_ptr(),
-        out.data_ptr() + kw["C"], kw["B"], 4, 8, 0, kw["D"], kw["win"],
-        kw["block"], card.index, torch.cuda.current_stream().cuda_stream)
-    assert lib.sgm_error_string(err).decode() == "invalid argument"
+    with pytest.raises(RuntimeError, match="^census entry: invalid argument$"):
+        sgm_cuda.LIBRARY.launch(
+            "sgm_census_cost", card, g.data_ptr(), g.data_ptr(), None,
+            codes.data_ptr(), out.data_ptr() + kw["C"], kw["B"], 4, 8, 0,
+            kw["D"], kw["win"], kw["block"], what="census entry")
 
 
 @pytest.mark.card

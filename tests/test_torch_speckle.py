@@ -21,6 +21,7 @@ import pytest
 import torch
 
 import simplestereo_tpu_torch as tss
+from cuda_card import card  # noqa: F401 (the fixture)
 from simplestereo_tpu_torch.passive import sgm, speckle_cuda
 
 TILE_H, TILE_W = 16, 32  # csrc/speckle_kernel.cu: kTileH, kTileW
@@ -289,14 +290,6 @@ def test_the_wrapper_refuses(bad):
 
 # -- on the card ------------------------------------------------------------
 
-@pytest.fixture
-def card():
-    """The card, or a skip: decided inside the test, never at import."""
-    if not torch.cuda.is_available():
-        pytest.skip("no CUDA card: runs on the H100 only")
-    return torch.device("cuda:0")
-
-
 def _on_card(card, d, *args):
     n = speckle_cuda.speckle_launches
     got = speckle_cuda.filter_speckles(torch.tensor(d, device=card), *args)
@@ -409,3 +402,33 @@ def test_bt_sgm_maps_at_720p(card, frames):
                         torch.tensor(rights[0], device=card))
     assert on_card.device == card
     assert torch.equal(on_card.cpu(), torch.from_numpy(want[0]))
+
+
+@pytest.mark.card
+def test_example_011_maps_at_720p(card):
+    """The kernels on example 011's BT SGM maps of the stand-in resource
+    tree's layered scenes (tests/torch_example_res.py) at 1280x720, one
+    frame and 8, called directly and through the matcher's ``compute``
+    and ``computeBatch`` (one launch set a call): each map the host
+    filter's."""
+    import torch_example_res as res
+    scenes = [res.tsukuba_scene((1280, 720), seed=40 + i)[:2]
+              for i in range(8)]
+    lefts = np.stack([a for a, _ in scenes])
+    rights = np.stack([b for _, b in scenes])
+    kw = dict(minDisparity=1, numDisparities=96, blockSize=7,
+              disp12MaxDiff=1, device="cuda")
+    raw = tss.passive.StereoSGM(**kw).computeBatch(lefts, rights)
+    args = (0, 120, 32)  # (minDisparity - 1) * 16, 120, speckleRange * 16
+    host = np.stack([sgm.filter_speckles(d, *args) for d in raw])
+    assert (host != raw).any()  # the filter has work to do
+    for frames in (1, 8):
+        assert torch.equal(_on_card(card, raw[:frames], *args),
+                           torch.from_numpy(host[:frames]))
+    m = tss.passive.StereoSGM(speckleWindowSize=120, **kw)
+    n = speckle_cuda.speckle_launches
+    one = m.compute(lefts[0], rights[0])
+    batch = m.computeBatch(lefts, rights)
+    assert speckle_cuda.speckle_launches == n + 2
+    np.testing.assert_array_equal(one, host[0])
+    np.testing.assert_array_equal(batch, host)

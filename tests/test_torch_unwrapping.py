@@ -197,7 +197,8 @@ def test_plan_matches_the_kernel_source():
     assert const["kTiles"] * const["kTileCols"] + 1 == unw.TILE_STRIDE
     assert "ctas > 16" in src and unw.CLUSTER_MAX == 16
     assert const["kMaxWarps"] == unw.MAX_WARPS
-    argtypes, _ = _build._SIGNATURES["iir_unwrap_kernel"]["iir_unwrap"]
+    assert unw.LIBRARY.name == "iir_unwrap_kernel"
+    argtypes, _ = unw.LIBRARY.signatures["iir_unwrap"]
     assert len(argtypes) == 13
 
 

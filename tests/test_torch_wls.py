@@ -317,8 +317,8 @@ def test_plan_matches_the_kernel_source():
     assert "extern __shared__" in src
     assert not re.search(r"\bwork\b", src)
     assert wls.SMEM_MAX == 232_448
-    assert "thomas_solve" in _build._SIGNATURES["thomas_kernel"]
-    argtypes, _ = _build._SIGNATURES["thomas_kernel"]["thomas_solve"]
+    assert wls.LIBRARY.name == "thomas_kernel"
+    argtypes, _ = wls.LIBRARY.signatures["thomas_solve"]
     assert len(argtypes) == 16
 
 
