@@ -593,15 +593,16 @@ def sgm_phases(dev, card):
         lefts = np.stack([np.roll(left, i, axis=0) for i in range(8)])
         rights = np.stack([np.roll(right, i, axis=0) for i in range(8)])
         sgm_cuda.launches = sgm_cuda.census_launches = 0
+        sgm_cuda.bt_launches = 0
         d = m.compute(left, right)
         batch = m.computeBatch(lefts, rights)
         per = [m.compute(lefts[i], rights[i]) for i in range(8)]
         n = sgm_cuda.launches
-        n_census = sgm_cuda.census_launches
+        n_census, n_bt = sgm_cuda.census_launches, sgm_cuda.bt_launches
         census = cfg.get("costMethod") == "census"
-        check(n_census == (10 if census else 0), f"SGM {h}x{w}: "
-              f"{n_census} census kernel calls, expected "
-              f"{10 if census else 0}")
+        check((n_census, n_bt) == ((10, 0) if census else (0, 10)),
+              f"SGM {h}x{w}: {n_census} census and {n_bt} BT kernel calls, "
+              f"expected {(10, 0) if census else (0, 10)}")
         if census:
             census_main = n_census
         check(d.shape == (h, w) and d.dtype == np.int16, f"SGM {h}x{w}: "
@@ -623,7 +624,7 @@ def sgm_phases(dev, card):
         print(f"phase {phase} SGM main path {w}x{h} D={D} "
               f"{cfg.get('costMethod', 'bt')}: {frac:.2%} of interior within "
               f"0.5 px of {SHIFT}, launches {n} (census kernel calls "
-              f"{n_census}), batch of 8 bit-equal to "
+              f"{n_census}, BT {n_bt}), batch of 8 bit-equal to "
               f"per-frame, compute() median {e2e[(h, w)]:.2f} ms/frame end "
               f"to end (host clock, n={n_e2e}) | {card}")
         torch.cuda.empty_cache()
@@ -742,11 +743,12 @@ def sgm_phases(dev, card):
             "bound_by": bound_by, "library_ms": None}
 
 
-# The card-marked test files that hold the census, speckle and post kernels
-# to their twins, each with the fewest cases it passes on the card.
+# The card-marked test files that hold the census, speckle, post and BT
+# kernels to their twins, each with the fewest cases it passes on the card.
 CARD_TESTS = {"tests/test_torch_sgm_census.py": 80,
               "tests/test_torch_speckle.py": 162,
-              "tests/test_torch_sgm_post.py": 21}
+              "tests/test_torch_sgm_post.py": 21,
+              "tests/test_torch_sgm_bt.py": 72}
 # The benchmark's two SGM configurations (portbench/configs/sgm_lawn720
 # and sgm_cloud720): census with the post; BT with the post and speckles.
 SGM_LAWN = dict(minDisparity=1, numDisparities=96, blockSize=3,
@@ -755,15 +757,47 @@ SGM_CLOUD = dict(minDisparity=1, numDisparities=96, blockSize=7,
                  disp12MaxDiff=1, speckleWindowSize=120, speckleRange=2)
 
 
+def bt_times(dev):
+    """CUDA-event ms of the BT kernel pair (``sgm_cuda.bt_cost``) at
+    sgm_cloud720's shapes (1280x720, D = 96 from 1, block 7, cap 63): one
+    frame alone and queued, 8 frames alone and queued, the torch twin on
+    the card, and the bound (C written once)."""
+    from simplestereo_tpu_torch.passive import sgm, sgm_cuda
+
+    left, right = pair(720, 1280)
+
+    def grays(B, i):
+        rows = [i * B + j for j in range(B)]
+        return tuple(sgm._gray_frames(torch.tensor(np.stack(
+            [np.roll(img, r, axis=0) for r in rows]), device=dev))
+            for img in (left, right))
+
+    def kernel(g):
+        return sgm_cuda.bt_cost(g[0], g[1], 1, 96, 63.0, 7)
+
+    def twin(g):
+        return sgm._box_sum(sgm._bt_cost(sgm._xsobel(g[0], 63.0),
+                                         sgm._xsobel(g[1], 63.0), 1, 96), 7)
+
+    one = [grays(1, i) for i in range(7)]
+    eight = [grays(8, i) for i in range(4)]
+    out = {"ms": cuda_ms(kernel, one)[0], "queued_ms": queued_ms(kernel, one),
+           "frames8_ms": cuda_ms(kernel, eight)[0],
+           "frames8_queued_ms": queued_ms(kernel, eight),
+           "plain_ms": cuda_ms(twin, one[:4])[0]}
+    out["bound_ms"], out["bound_by"] = bound(0, 720 * 1280 * 96 * 4)
+    return out
+
+
 def card_tests_phase(dev, card):
-    """Phase 31: the census, speckle and post kernels against their twins.
-    Runs their ``card``-marked test files (``CARD_TESTS``) in this
+    """Phase 31: the census, speckle, post and BT kernels against their
+    twins. Runs their ``card``-marked test files (``CARD_TESTS``) in this
     process, as ``python -m pytest --noconftest -p no:cacheprovider -m
     card`` does: no case may fail or skip, and each file passes at least
     its count. Then counts each kernel's calls on the main path,
     ``compute`` and ``computeBatch`` (2 frames) of the benchmark's two SGM
-    configurations at 1280x720. Returns the three kernels' JSON
-    records."""
+    configurations at 1280x720, and times the BT pair there
+    (:func:`bt_times`). Returns the four kernels' JSON records."""
     import collections
     import pathlib
 
@@ -793,8 +827,8 @@ def card_tests_phase(dev, card):
                       "card"], plugins=[outcomes])
     tests_s = time.perf_counter() - t0
     torch.cuda.empty_cache()
-    check(rc == 0, f"card tests of the census, speckle and post kernels: "
-          f"pytest exit code {int(rc)}")
+    check(rc == 0, f"card tests of the census, speckle, post and BT "
+          f"kernels: pytest exit code {int(rc)}")
     passed = {}
     for f, least in CARD_TESTS.items():
         n = {k: outcomes.n[f, k] for k in ("passed", "failed", "skipped")}
@@ -808,35 +842,42 @@ def card_tests_phase(dev, card):
     for name, cfg in (("sgm_lawn720", SGM_LAWN), ("sgm_cloud720", SGM_CLOUD)):
         m = StereoSGM(device="cuda", **cfg)
         sgm_cuda.census_launches = sgm_cuda.post_launches = 0
-        speckle_cuda.speckle_launches = 0
+        sgm_cuda.bt_launches = speckle_cuda.speckle_launches = 0
         one = m.compute(left, right)
         batch = m.computeBatch(np.stack([left] * 2), np.stack([right] * 2))
         counts[name] = (sgm_cuda.census_launches, sgm_cuda.post_launches,
-                        speckle_cuda.speckle_launches)
+                        speckle_cuda.speckle_launches, sgm_cuda.bt_launches)
         check(np.array_equal(batch[0], one) and np.array_equal(batch[1], one),
               f"{name} on the card: computeBatch differs from compute")
         del m, one, batch
-    check(counts == {"sgm_lawn720": (2, 2, 0), "sgm_cloud720": (0, 2, 2)},
-          f"census, post and speckle calls on compute + computeBatch: "
-          f"{counts}, expected (2, 2, 0) for sgm_lawn720 and (0, 2, 2) for "
-          f"sgm_cloud720")
+    check(counts == {"sgm_lawn720": (2, 2, 0, 0),
+                     "sgm_cloud720": (0, 2, 2, 2)},
+          f"census, post, speckle and BT calls on compute + computeBatch: "
+          f"{counts}, expected (2, 2, 0, 0) for sgm_lawn720 and (0, 2, 2, 2) "
+          f"for sgm_cloud720")
     torch.cuda.empty_cache()
-    print(f"phase 31 census, speckle and post kernels vs twins: their card "
-          f"tests in this process, " + ", ".join(
+    bt = bt_times(dev)
+    torch.cuda.empty_cache()
+    print(f"phase 31 census, speckle, post and BT kernels vs twins: their "
+          f"card tests in this process, " + ", ".join(
               f"{pathlib.Path(f).name} {n} passed" for f, n in passed.items())
           + f", none failed or skipped, {tests_s:.1f} s; calls on compute + "
-          f"computeBatch at 1280x720 (census, post, speckle): sgm_lawn720 "
-          f"{counts['sgm_lawn720']}, sgm_cloud720 {counts['sgm_cloud720']} "
-          f"| {card}")
+          f"computeBatch at 1280x720 (census, post, speckle, BT): "
+          f"sgm_lawn720 {counts['sgm_lawn720']}, sgm_cloud720 "
+          f"{counts['sgm_cloud720']}; the BT pair at 720p D=96 block 7: "
+          f"{bt['ms']:.4f} ms a frame, queued {bt['queued_ms']:.4f}, 8 "
+          f"frames {bt['frames8_ms']:.4f}, queued "
+          f"{bt['frames8_queued_ms']:.4f}; the torch twin {bt['plain_ms']:.3f}"
+          f"; bound {bt['bound_ms']:.4f} ({bt['bound_by']}) | {card}")
 
-    def record(name, source, replaces, launches, tests):
-        # times: the benchmark's breakdown records these kernels' device
-        # time inside its cells
+    def record(name, source, replaces, launches, tests, times=None):
+        # times of the census, speckle and post kernels: the benchmark's
+        # breakdown records their device time inside its cells
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches,
                 "max_abs_err": 0.0, "checked_by": tests,
                 "card_cases": passed[tests], "ms": None, "plain_ms": None,
-                "bound_ms": None, "library_ms": None}
+                "bound_ms": None, "library_ms": None, **(times or {})}
 
     sgm_src = "simplestereo_tpu_torch/csrc/sgm_kernel.cu"
     tests = list(CARD_TESTS)
@@ -850,7 +891,10 @@ def card_tests_phase(dev, card):
                    counts["sgm_cloud720"][2], tests[1]),
             record("sgm_post", sgm_src, "simplestereo_tpu/passive/sgm.py "
                    "_sgm_post (XLA-fused, no TPU kernel)",
-                   counts["sgm_lawn720"][1], tests[2])]
+                   counts["sgm_lawn720"][1], tests[2]),
+            record("sgm_bt_cost", sgm_src, "simplestereo_tpu/passive/sgm.py "
+                   "_bt_cost, _box_sum (XLA-fused, no TPU kernel)",
+                   counts["sgm_cloud720"][3], tests[3], bt)]
 
 
 def gsw_phases(dev, card):
@@ -3935,14 +3979,15 @@ def main():
     carry_entry["launches"] = counts["sgm"]
     timed("29", formats_phase, dev, card)
     timed("30", examples_phase, dev, card)
-    census_entry, speckle_entry, post_entry = timed(
+    census_entry, speckle_entry, post_entry, bt_entry = timed(
         "31", card_tests_phase, dev, card)
     print("phase wall times (host clock, s, build included in 1-6): "
           + ", ".join(f"{k} {v:.1f}" for k, v in walls.items())
           + f"; total {time.perf_counter() - start:.1f} | {card}")
 
     print(json.dumps({"kernels": [asw_entry, sgm_entry, census_entry,
-                                  speckle_entry, post_entry, carry_entry,
+                                  speckle_entry, post_entry, bt_entry,
+                                  carry_entry,
                                   gsw_entry, rotate_entry, iir_entry,
                                   s2_entry]}))
     print(json.dumps({"ok": True, "device": {

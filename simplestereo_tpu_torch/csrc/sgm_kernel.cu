@@ -873,6 +873,310 @@ extern "C" int sgm_census_cost(const void* gray1, const void* gray2,
 }
 
 // ---------------------------------------------------------------------------
+// The Birchfield-Tomasi cost volume that the kernels above read
+// (sgm_bt_cost).
+//
+// Replaces no TPU kernel: the JAX package leaves BT's cost to XLA, which
+// fuses it. The port's torch code for it (sgm.py: _xsobel, _interval,
+// _bt_cost, _edge_fill_rows, _box_sum) is its twin, and ran as ~90
+// launches over float volumes. For (B, H, W) float32 gray images L
+// (reference) and R (target) it computes, in the twin's float32
+// operations and order,
+//     s      = clamp((((((a + 2b) + c) - d) - 2e) - f) / 4, -cap, cap)
+//              the x-Sobel: a, b, c the column right of the pixel, top to
+//              bottom, d, e, f the column left, rows and columns clamped
+//              to the image (_xsobel)
+//     lo, hi = min(min(s-, s+), s), max(max(s-, s+), s) with s- = 0.5 *
+//              (s + s(x - 1)), s+ = 0.5 * (s + s(x + 1)), the neighbour
+//              clamped to the image (_interval)
+//     h(y, x, d) = min(max(max(sL - hiR, loR - sL), 0),
+//                      max(max(sR - hiL, loL - sR), 0))
+//              R's planes at column clamp(x - dv), dv = min_disp + d
+//              (_bt_cost, _shift_edge's edge fill)
+//     C(y, x, d) = the box of h: at each of the box's k columns (clamped
+//              to the image) a left fold over its k rows, top row first
+//              (clamped to [row_lo, row_hi]: the image's rows, or the valid
+//              rows of a row-tiled block), then a left fold of those k sums,
+//              leftmost first (_box_sum over _edge_fill_rows).
+// BT's costs are not whole numbers, so the order of the sums is part of
+// the result: there is no running or sliding-window sum and no tree. The
+// only multiplies (x2, /4, x0.5) are by powers of two, so they are exact
+// and an FMA that nvcc contracts from a + 2b or d - 2e gives the same
+// bits. min and max are exact, and gray values >= 0 give no -0, so their
+// rule for signed zeros does not matter either. C equals the twin's bit
+// for bit.
+//
+// What bounds it: writing C once (354 MB a 1280x720 frame at D = 96,
+// 0.106 ms at 3.35 TB/s); the planes are 24 bytes a pixel and read from
+// L2. Then the shared memory and the instructions a cell of C takes, which
+// the design keeps few:
+//   - bt_prefilter_kernel: one thread a pixel, the tile's gray and its
+//     halo, then its Sobel and a column each side, staged in shared
+//     memory; both images and all frames in one launch; planes (B, 2, 3,
+//     H, W): s, lo, hi.
+//   - bt_cost_kernel<K>, one kernel a block size K: a block a strip of
+//     kBtRows rows x TX columns of one frame and a chunk of dc = 4 *
+//     groups candidates (4 to 32). It walks the strip's rows and their box
+//     halo top to bottom. A row's planes are loaded one row ahead into
+//     registers, then staged: ni = 256 / groups columns of L, ni + dc - 1
+//     of R (the columns the chunk's shifts reach). Thread (i, g) computes
+//     h of staged column i for candidates 4g .. 4g + 3, once, into a ring
+//     of the box's K rows held in its registers (the row loop is unrolled
+//     K times, so every ring index is static). From the K-th row on it
+//     folds the ring, oldest row first, into shared memory; then thread
+//     (x, g), x < TX = ni - K + 1, folds K of those sums across the
+//     columns and stores its four candidates, 16 bytes at once where D %
+//     4 == 0, the lanes of a warp on consecutive candidates. The entry
+//     picks groups, the least power of two with 4 * groups >= D, up to 8.
+// kBtBlockMax bounds K: the ring takes 4K registers a thread, and the
+// strip's halo takes K - 1 of its 32 staged columns at 32 candidates.
+
+namespace {
+
+constexpr int kBtThreads = 256;  // threads a block, both kernels
+constexpr int kBtPreTX = 32;     // prefilter tile columns
+constexpr int kBtPreTY = 8;      // prefilter tile rows
+constexpr int kBtRows = 48;      // output rows of a cost block's strip
+constexpr int kBtBlockMax = 11;  // largest block
+// Staged plane columns of a row, at most: ni + ni + dc - 1 at groups 1.
+constexpr int kBtStaged = 2 * kBtThreads + 3;
+constexpr int kBtStage = (kBtStaged + kBtThreads - 1) / kBtThreads;
+
+// grid (tiles of kBtPreTY x kBtPreTX pixels, frames, 2 images); planes
+// (frames, 2, 3, H, W).
+__global__ void __launch_bounds__(kBtThreads) bt_prefilter_kernel(
+    const float* __restrict__ g1, const float* __restrict__ g2,
+    float* __restrict__ planes, int H, int W, float cap) {
+  constexpr int gw = kBtPreTX + 4, sw = kBtPreTX + 2;
+  // gray of rows y0 - 1 .. y0 + kBtPreTY and columns x0 - 2 .. x0 +
+  // kBtPreTX + 1, each clamped to the image; the Sobel of the tile's rows
+  // at columns clamp(x0 - 1 + c), c < sw
+  __shared__ float gs[kBtPreTY + 2][gw];
+  __shared__ float ss[kBtPreTY][sw];
+  const int tiles_x = (W + kBtPreTX - 1) / kBtPreTX;
+  const int x0 = (blockIdx.x % tiles_x) * kBtPreTX;
+  const int y0 = (blockIdx.x / tiles_x) * kBtPreTY;
+  const long long hw = (long long)H * W;
+  const float* g = (blockIdx.z ? g2 : g1) + blockIdx.y * hw;
+  for (int e = threadIdx.x; e < (kBtPreTY + 2) * gw; e += kBtThreads) {
+    const int r = e / gw, c = e - r * gw;
+    gs[r][c] = g[(long long)clamp_to(y0 - 1 + r, H) * W +
+                 clamp_to(x0 - 2 + c, W)];
+  }
+  __syncthreads();
+  for (int e = threadIdx.x; e < kBtPreTY * sw; e += kBtThreads) {
+    const int r = e / sw, c = e - r * sw;
+    // gray column x - 1 (x + 1) of column x is staged column x - x0 + 1
+    // (x - x0 + 3)
+    const int x = clamp_to(x0 - 1 + c, W);
+    const int cl = x - x0 + 1, cr = x - x0 + 3;
+    float dx = gs[r][cr] + 2.0f * gs[r + 1][cr];
+    dx = dx + gs[r + 2][cr];
+    dx = dx - gs[r][cl];
+    dx = dx - 2.0f * gs[r + 1][cl];
+    dx = dx - gs[r + 2][cl];
+    ss[r][c] = fminf(fmaxf(dx * 0.25f, -cap), cap);
+  }
+  __syncthreads();
+  const int tx = threadIdx.x % kBtPreTX, ty = threadIdx.x / kBtPreTX;
+  const int x = x0 + tx, y = y0 + ty;
+  if (x >= W || y >= H) return;
+  const float s = ss[ty][tx + 1];
+  const float am = 0.5f * (s + ss[ty][tx]);
+  const float ap = 0.5f * (s + ss[ty][tx + 2]);
+  float* out = planes + (blockIdx.y * 2 + blockIdx.z) * 3 * hw +
+               (long long)y * W + x;
+  out[0] = s;
+  out[hw] = fminf(fminf(am, ap), s);
+  out[2 * hw] = fmaxf(fmaxf(am, ap), s);
+}
+
+// h of a reference pixel's planes l and the target's r (s, lo, hi).
+__device__ __forceinline__ float bt_cell(float4 l, float4 r) {
+  const float c_rt = fmaxf(l.x - r.z, r.y - l.x);
+  const float c_tr = fmaxf(r.x - l.z, l.y - r.x);
+  return fminf(fmaxf(c_rt, 0.0f), fmaxf(c_tr, 0.0f));
+}
+
+__device__ __forceinline__ float4 add4(float4 a, float4 b) {
+  return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
+}
+
+// grid (strips of kBtRows x TX pixels times chunks of 4 << groups_log2
+// candidates, frames); planes (frames, 2, 3, H, W), C (frames, H, W, D).
+// rows: null, or the first and last row the box reads (of every frame).
+// vec: D % 4 == 0, so a thread's four candidates are one aligned float4
+// of C.
+template <int K>
+__global__ void __launch_bounds__(kBtThreads) bt_cost_kernel(
+    const float* __restrict__ planes, const int* __restrict__ rows,
+    float* __restrict__ C, int H, int W, int D, int min_disp,
+    int groups_log2, int vec) {
+  constexpr int p = K / 2;
+  // a row's staged planes (s, lo, hi, unused): L's columns, then R's; and
+  // the row sums, candidate group g at g * (ni + 1) (padded: the column
+  // pass reads the groups of one column side by side). Two of each, by
+  // the row's parity, so one barrier a row orders their reuse.
+  __shared__ float4 ps[2][kBtStaged];
+  __shared__ float4 vs[2][kBtThreads + 8];
+  const int groups = 1 << groups_log2, dc = 4 * groups;
+  const int ni = kBtThreads >> groups_log2;  // staged L columns
+  const int nst = 2 * ni + dc - 1;           // with R's ni + dc - 1
+  const int tx_n = ni - (K - 1);             // output columns
+  const int tiles_x = (W + tx_n - 1) / tx_n;
+  const int tiles = tiles_x * ((H + kBtRows - 1) / kBtRows);
+  const int tile = blockIdx.x % tiles;
+  const int x0 = (tile % tiles_x) * tx_n;
+  const int y0 = (tile / tiles_x) * kBtRows;
+  const int dc0 = blockIdx.x / tiles * dc;    // the chunk's first candidate
+  const int dv_hi = min_disp + dc0 + dc - 1;  // its largest shift
+  const int cx_lo = clamp_to(x0 - p, W);      // smallest clamped column
+  const int base = cx_lo - dv_hi;             // column of R's column 0
+  const int row_lo = rows ? clamp_to(rows[0], H) : 0;
+  const int row_hi = rows ? clamp_to(rows[1], H) : H - 1;
+  const long long hw = (long long)H * W;
+  const float* Lp = planes + blockIdx.y * 6 * hw;
+  const float* Rp = Lp + 3 * hw;
+
+  // The row pass: staged column i (image column clamp(x0 - p + i)) and
+  // candidates 4g .. 4g + 3, lanes on consecutive columns. Candidate 4g +
+  // q reads R's staged column j0 - q.
+  const int i = threadIdx.x % ni, g = threadIdx.x / ni;
+  const int j0 = clamp_to(x0 - p + i, W) - cx_lo + dc - 1 - 4 * g;
+  const int vi = g * (ni + 1) + i;
+  // The column pass: output column x0 + xc and candidates 4gc .. 4gc + 3,
+  // lanes on consecutive candidates.
+  const int gc = threadIdx.x & (groups - 1), xc = threadIdx.x >> groups_log2;
+  const int d4 = dc0 + 4 * gc;
+  const bool store = xc < tx_n && x0 + xc < W && d4 < D;
+  float* Cq = C + blockIdx.y * hw * D + ((long long)y0 * W + x0 + xc) * D + d4;
+  const int vc = gc * (ni + 1) + xc;
+
+  const int nsteps = min(kBtRows, H - y0) + K - 1;  // rows, halo included
+  float st[kBtStage][3];
+  // the planes of step r's row (image row y0 - p + r, clamped), into st
+  const auto fetch = [&](int r) {
+    const long long row =
+        (long long)min(max(y0 - p + r, row_lo), row_hi) * W;
+#pragma unroll
+    for (int u = 0; u < kBtStage; ++u) {
+      const int e = threadIdx.x + u * kBtThreads;
+      if (e < nst) {
+        const float* q = e < ni ? Lp + row + clamp_to(x0 - p + e, W)
+                                : Rp + row + clamp_to(base + e - ni, W);
+        st[u][0] = q[0];
+        st[u][1] = q[hw];
+        st[u][2] = q[2 * hw];
+      }
+    }
+  };
+  float4 ring[K];
+  fetch(0);
+  for (int r0 = 0; r0 < nsteps; r0 += K) {
+#pragma unroll
+    for (int s = 0; s < K; ++s) {
+      const int r = r0 + s;
+      if (r < nsteps) {
+        const int b = r & 1;
+#pragma unroll
+        for (int u = 0; u < kBtStage; ++u) {
+          const int e = threadIdx.x + u * kBtThreads;
+          if (e < nst) ps[b][e] = make_float4(st[u][0], st[u][1], st[u][2],
+                                              0.0f);
+        }
+        __syncthreads();
+        if (r + 1 < nsteps) fetch(r + 1);
+        const float4 l = ps[b][i];
+        const float4* R = ps[b] + ni + j0;
+        ring[s] = make_float4(bt_cell(l, R[0]), bt_cell(l, R[-1]),
+                              bt_cell(l, R[-2]), bt_cell(l, R[-3]));
+        if (r >= K - 1) {  // the box's rows r - K + 1 .. r: slots s + 1 ..
+          float4 v = ring[(s + 1) % K];
+#pragma unroll
+          for (int t = 2; t <= K; ++t) v = add4(v, ring[(s + t) % K]);
+          vs[b][vi] = v;
+          __syncthreads();
+          if (store) {
+            const float4* w = vs[b] + vc;
+            float4 c = w[0];
+#pragma unroll
+            for (int t = 1; t < K; ++t) c = add4(c, w[t]);
+            float* q = Cq + (long long)(r - (K - 1)) * W * D;
+            if (vec) {
+              *reinterpret_cast<float4*>(q) = c;
+            } else {
+              q[0] = c.x;
+              if (d4 + 1 < D) q[1] = c.y;
+              if (d4 + 2 < D) q[2] = c.z;
+              if (d4 + 3 < D) q[3] = c.w;
+            }
+          }
+        }
+      }
+    }
+  }
+}
+
+using BtCostFn = void (*)(const float*, const int*, float*, int, int, int,
+                          int, int, int);
+
+BtCostFn bt_cost_fn(int block) {
+  switch (block) {
+    case 1: return bt_cost_kernel<1>;
+    case 3: return bt_cost_kernel<3>;
+    case 5: return bt_cost_kernel<5>;
+    case 7: return bt_cost_kernel<7>;
+    case 9: return bt_cost_kernel<9>;
+    case 11: return bt_cost_kernel<11>;
+    default: return nullptr;
+  }
+}
+
+static_assert(kBtBlockMax == 11, "bt_cost_fn has a kernel a block to 11");
+
+}  // namespace
+
+// C (B, H, W, D) float32: the box-summed Birchfield-Tomasi cost of the
+// (B, H, W) float32 gray stacks gray1 (reference) and gray2 (target) on
+// their x-Sobel clipped to [-cap, cap], candidates min_disp .. min_disp +
+// D - 1, the box's rows clamped to rows[0] .. rows[1] (int32 on the card;
+// null: the image's); planes: scratch of B * 2 * 3 * H * W floats. block
+// odd, at most kBtBlockMax; B <= 65,535; C 16-byte aligned where D % 4 ==
+// 0.
+extern "C" int sgm_bt_cost(const void* gray1, const void* gray2,
+                           const void* rows, void* planes, void* C, int B,
+                           int H, int W, int min_disp, int D, int block,
+                           float cap, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const BtCostFn kernel = bt_cost_fn(block);
+  if (B < 1 || B > 65535 || H < 1 || W < 1 || D < 1 || kernel == nullptr ||
+      (D % 4 == 0 && ((uintptr_t)C & 15) != 0))
+    return (int)cudaErrorInvalidValue;
+  int groups_log2 = 0;
+  while (groups_log2 < 3 && (4 << groups_log2) < D) ++groups_log2;
+  const int tx_n = (kBtThreads >> groups_log2) - (block - 1);
+  const long long strips = (long long)((H + kBtRows - 1) / kBtRows) *
+                           ((W + tx_n - 1) / tx_n);
+  const long long chunks = (D + (4 << groups_log2) - 1) >> (groups_log2 + 2);
+  const long long tiles = (long long)((H + kBtPreTY - 1) / kBtPreTY) *
+                          ((W + kBtPreTX - 1) / kBtPreTX);
+  if (strips * chunks > 0x7fffffffLL || tiles > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* pl = static_cast<float*>(planes);
+  bt_prefilter_kernel<<<dim3((unsigned)tiles, B, 2), kBtThreads, 0, s>>>(
+      static_cast<const float*>(gray1), static_cast<const float*>(gray2), pl,
+      H, W, cap);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<dim3((unsigned)(strips * chunks), B), kBtThreads, 0, s>>>(
+      pl, static_cast<const int*>(rows), static_cast<float*>(C), H, W, D,
+      min_disp, groups_log2, (int)(D % 4 == 0));
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
 // The post pass over the path sum S (sgm_post): winner-take-all,
 // uniqueness, the quadratic subpixel fit and the left-right check.
 //

@@ -13,10 +13,12 @@ per-frame results bit for bit.
 
 - **Cost**: Birchfield-Tomasi on the clipped x-Sobel prefilter
   (:func:`_bt_cost`), census + Hamming distance (:func:`_census_cost`), or
-  their sum, box-summed over the blockSize window (:func:`_box_sum`). The
-  census cost of CUDA gray images (``"census"``, blockSize up to 591)
-  runs the census kernels instead, :func:`.sgm_cuda.census_cost`, whose
-  twin is the torch code.
+  their sum, box-summed over the blockSize window (:func:`_box_sum`). On
+  CUDA gray images the census cost (``"census"``, blockSize up to 591)
+  runs the census kernels instead, :func:`.sgm_cuda.census_cost`, and the
+  BT cost (``"bt"``, blockSize up to 11) the BT kernels,
+  :func:`.sgm_cuda.bt_cost`; the torch code is the twin of both
+  (:func:`_cost_kernel` holds the rule).
 - **Aggregation**: :func:`.sgm_cuda.aggregate`, the hand-written CUDA
   kernel for a CUDA tensor and the plain twin :func:`.sgm_cuda._aggregate`
   for a CPU one.
@@ -50,7 +52,8 @@ from .._device import resolve_device
 from ..profiling import annotate
 from . import speckle_cuda
 from ._entry import run_numpy
-from .sgm_cuda import CENSUS_BLOCK_MAX, aggregate, census_cost, post
+from .sgm_cuda import (BT_BLOCK_MAX, CENSUS_BLOCK_MAX, aggregate,
+                       bt_cost, census_cost, post)
 
 INVALID_SHIFT = 4  # output = disparity * 16 (OpenCV DISP_SHIFT convention)
 
@@ -201,21 +204,39 @@ def _valid_range(valid):
     return torch.argmax(v), valid.shape[0] - 1 - torch.argmax(v.flip(0))
 
 
+def _cost_kernel(cost_method, device, block_size):
+    """The hand kernel pair that computes a cost on ``device``: "census"
+    (:func:`.sgm_cuda.census_cost`) for ``"census"`` up to
+    ``CENSUS_BLOCK_MAX``, "bt" (:func:`.sgm_cuda.bt_cost`) for ``"bt"`` up
+    to ``BT_BLOCK_MAX``, on a CUDA device; None, the torch code, in every
+    other case. ``"bt+census"`` stays on the torch code: no benchmark cell
+    runs it."""
+    if torch.device(device).type != "cuda":
+        return None
+    if cost_method == "census" and block_size <= CENSUS_BLOCK_MAX:
+        return "census"
+    if cost_method == "bt" and block_size <= BT_BLOCK_MAX:
+        return "bt"
+    return None
+
+
 def _cost_from_gray(gray1, gray2, *, min_disp, num_disp, block_size,
                     prefilter_cap, cost_method="bt", census_window=5,
                     row_valid=None):
     """:func:`_sgm_cost` of (..., H, W) float32 gray images.
 
-    ``"census"`` on CUDA images runs the census kernels
-    (:func:`.sgm_cuda.census_cost`, ``row_valid`` as the rows its box
-    reads) up to their largest block, ``CENSUS_BLOCK_MAX``; every other
-    case the torch code below, their twin."""
-    if (cost_method == "census" and gray1.device.type == "cuda"
-            and block_size <= CENSUS_BLOCK_MAX):
+    Where :func:`_cost_kernel` names a kernel pair, runs it
+    (``row_valid`` as the rows its box reads); every other case the torch
+    code below, its twin."""
+    kernel = _cost_kernel(cost_method, gray1.device, block_size)
+    if kernel is not None:
         rows = (None if row_valid is None else
                 torch.stack(_valid_range(row_valid)).to(torch.int32))
-        return census_cost(gray1, gray2, min_disp, num_disp, census_window,
-                           block_size, rows)
+        if kernel == "census":
+            return census_cost(gray1, gray2, min_disp, num_disp,
+                               census_window, block_size, rows)
+        return bt_cost(gray1, gray2, min_disp, num_disp, prefilter_cap,
+                       block_size, rows)
     C = None
     if cost_method in ("bt", "bt+census"):
         g1 = _xsobel(gray1, prefilter_cap)

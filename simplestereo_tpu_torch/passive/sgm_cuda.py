@@ -34,8 +34,11 @@ The census cost volume C that the aggregation reads comes from the same
 library: :func:`census_cost` launches ``census_words_kernel`` and
 ``census_cost_kernel`` (``csrc/sgm_kernel.cu``), whose twin is the torch
 code of :mod:`.sgm` (``_census_cost``, ``_edge_fill_rows`` and
-``_box_sum``). So does the post pass over S: :func:`post` launches
-``sgm_post_kernel``, whose twin is ``sgm._sgm_post_plain``.
+``_box_sum``), and :func:`bt_cost` launches ``bt_prefilter_kernel`` and
+``bt_cost_kernel``, whose twin is ``_xsobel``, ``_interval``,
+``_bt_cost``, ``_edge_fill_rows`` and ``_box_sum``. So does the post pass
+over S: :func:`post` launches ``sgm_post_kernel``, whose twin is
+``sgm._sgm_post_plain``.
 """
 
 import ctypes
@@ -60,6 +63,9 @@ LIBRARY = _build.Library("sgm_kernel", {
     # gray1, gray2, rows, codes, C, B, H, W, min_disp, D, win, block,
     # device, stream
     "sgm_census_cost": ([_P] * 5 + [_I] * 8 + [_P], _I),
+    # gray1, gray2, rows, planes, C, B, H, W, min_disp, D, block, cap,
+    # device, stream
+    "sgm_bt_cost": ([_P] * 5 + [_I] * 6 + [_F, _I, _P], _I),
     # S, out, keys, disps, B, H, W, D, min_disp, uniq_factor, uniq,
     # lr_max, subpixel, nj, group, device, stream
     "sgm_post": ([_P] * 4 + [_I] * 5 + [_F] + [_I] * 6 + [_P], _I),
@@ -92,6 +98,17 @@ CENSUS_WINDOWS = (3, 5, 7)
 # The largest block the census kernels take (kCensusBlockMax): a box sum,
 # at most 48 k * k, stays below 2**24, so exact in float32 in any order.
 CENSUS_BLOCK_MAX = 591
+
+# Calls of bt_cost (each launches the BT kernels: a prefilter and a cost
+# launch, or one pair a piece of 65,535 frames).
+bt_launches = 0
+
+# The largest block the BT kernels take (kBtBlockMax): the cost kernel
+# keeps the box's rows in a ring of 4 * block registers a thread, one
+# compiled kernel a block, and at 32 candidates a block the box's halo
+# takes block - 1 of the 32 columns it stages. OpenCV's usual blocks are 3
+# to 11; a larger one runs the torch code.
+BT_BLOCK_MAX = 11
 
 # Calls of post (each launches sgm_post_kernel once, or once a piece of
 # 65,535 frames).
@@ -430,6 +447,35 @@ def sum_paths(L):
     return S
 
 
+def _check_grays(gray1, gray2, num_disp, block_size, block_max, kernels,
+                 rows):
+    """Raise ValueError for what a cost kernel pair does not take: gray
+    images that are not two non-empty float32 (..., H, W) tensors of one
+    shape on one CUDA card, a block size that is even or above
+    ``block_max``, num_disp below 1, and ``rows`` other than None or a (2,)
+    int32 tensor on the card. ``kernels`` names the pair."""
+    if gray1.shape != gray2.shape or gray1.dim() < 2 or gray1.numel() == 0:
+        raise ValueError(f"gray images must be two non-empty (..., H, W) "
+                         f"tensors of one shape, got {tuple(gray1.shape)} "
+                         f"and {tuple(gray2.shape)}")
+    if gray1.dtype != torch.float32 or gray2.dtype != torch.float32:
+        raise ValueError(f"gray images must be float32, got {gray1.dtype} "
+                         f"and {gray2.dtype}")
+    if not (1 <= block_size <= block_max and block_size % 2 == 1
+            and num_disp >= 1):
+        raise ValueError(f"block size must be odd, 1 to {block_max}, "
+                         f"and num_disp positive, got {block_size}, "
+                         f"{num_disp}")
+    dev = gray1.device
+    if dev.type != "cuda" or gray2.device != dev:
+        raise ValueError(f"the {kernels} kernels take CUDA tensors on one "
+                         f"card, got {dev} and {gray2.device}")
+    if rows is not None and (rows.shape != (2,) or rows.dtype != torch.int32
+                             or rows.device != dev):
+        raise ValueError(f"rows must be a (2,) int32 tensor on {dev}, got "
+                         f"{tuple(rows.shape)} {rows.dtype} on {rows.device}")
+
+
 def census_cost(gray1, gray2, min_disp, num_disp, census_window,
                 block_size, rows=None):
     """Box-summed census Hamming cost of two (..., H, W) float32 gray
@@ -448,29 +494,12 @@ def census_cost(gray1, gray2, min_disp, num_disp, census_window,
     ``CENSUS_BLOCK_MAX``.
     """
     global census_launches
-    if gray1.shape != gray2.shape or gray1.dim() < 2 or gray1.numel() == 0:
-        raise ValueError(f"gray images must be two non-empty (..., H, W) "
-                         f"tensors of one shape, got {tuple(gray1.shape)} "
-                         f"and {tuple(gray2.shape)}")
-    if gray1.dtype != torch.float32 or gray2.dtype != torch.float32:
-        raise ValueError(f"gray images must be float32, got {gray1.dtype} "
-                         f"and {gray2.dtype}")
     if census_window not in CENSUS_WINDOWS:
         raise ValueError(f"census window must be 3, 5 or 7, got "
                          f"{census_window}")
-    if not (1 <= block_size <= CENSUS_BLOCK_MAX and block_size % 2 == 1
-            and num_disp >= 1):
-        raise ValueError(f"block size must be odd, 1 to {CENSUS_BLOCK_MAX}, "
-                         f"and num_disp positive, got {block_size}, "
-                         f"{num_disp}")
+    _check_grays(gray1, gray2, num_disp, block_size, CENSUS_BLOCK_MAX,
+                 "census", rows)
     dev = gray1.device
-    if dev.type != "cuda" or gray2.device != dev:
-        raise ValueError(f"the census kernels take CUDA tensors on one card, "
-                         f"got {dev} and {gray2.device}")
-    if rows is not None and (rows.shape != (2,) or rows.dtype != torch.int32
-                             or rows.device != dev):
-        raise ValueError(f"rows must be a (2,) int32 tensor on {dev}, got "
-                         f"{tuple(rows.shape)} {rows.dtype} on {rows.device}")
     lead, (H, W) = gray1.shape[:-2], gray1.shape[-2:]
     B, D = math.prod(lead), num_disp
     g1 = gray1.reshape(B, H, W).contiguous()
@@ -487,6 +516,47 @@ def census_cost(gray1, gray2, min_disp, num_disp, census_window,
             C.data_ptr() + b0 * frame * D * 4, b1 - b0, H, W, min_disp, D,
             census_window, block_size, what="census kernel launch failed")
     census_launches += 1
+    return C.reshape(*lead, H, W, D)
+
+
+def bt_cost(gray1, gray2, min_disp, num_disp, prefilter_cap, block_size,
+            rows=None):
+    """Box-summed Birchfield-Tomasi cost of two (..., H, W) float32 gray
+    stacks on a CUDA card: (..., H, W, num_disp) float32, contiguous, D
+    innermost, equal bit for bit to ``sgm._box_sum(sgm._bt_cost(
+    sgm._xsobel(gray1, cap), sgm._xsobel(gray2, cap), min_disp,
+    num_disp), block_size)`` with cap ``prefilter_cap`` (see
+    ``csrc/sgm_kernel.cu`` for the float order that keeps it so).
+
+    ``rows``: as :func:`census_cost`'s, the rows the box may read
+    (``sgm._edge_fill_rows`` before the box).
+
+    Launches the BT kernels and adds one to ``bt_launches`` once the
+    launches have succeeded. Raises ValueError for tensors off the card,
+    of other shapes or types, and a block size that is even or above
+    ``BT_BLOCK_MAX``.
+    """
+    global bt_launches
+    _check_grays(gray1, gray2, num_disp, block_size, BT_BLOCK_MAX, "BT",
+                 rows)
+    dev = gray1.device
+    lead, (H, W) = gray1.shape[:-2], gray1.shape[-2:]
+    B, D = math.prod(lead), num_disp
+    g1 = gray1.reshape(B, H, W).contiguous()
+    g2 = gray2.reshape(B, H, W).contiguous()
+    planes = torch.empty((B, 2, 3, H, W), dtype=torch.float32, device=dev)
+    C = torch.empty((B, H, W, D), dtype=torch.float32, device=dev)
+    frame = H * W
+    for b0, b1 in _build.frame_pieces(B, _build.GRID_YZ_MAX):
+        LIBRARY.launch(
+            "sgm_bt_cost", dev,
+            g1.data_ptr() + b0 * frame * 4, g2.data_ptr() + b0 * frame * 4,
+            None if rows is None else rows.data_ptr(),
+            planes.data_ptr() + b0 * 6 * frame * 4,
+            C.data_ptr() + b0 * frame * D * 4, b1 - b0, H, W, min_disp, D,
+            block_size, float(prefilter_cap),
+            what="BT kernel launch failed")
+    bt_launches += 1
     return C.reshape(*lead, H, W, D)
 
 
