@@ -265,8 +265,9 @@ ASW_DEEP = dict(B=6000, h=8, w=140, win_size=5, min_disp=0, max_disp=127)
 # 111 (wider than the tile: a 142-column halo, the chunk drops to 4 to
 # fit), B = 2 at 37x101. Every range holds the pair's true shift: without
 # it every TAD of a noise pair hits the cap, all costs tie to the last ulp
-# and the argmin is noise. Each case runs the shared-memory tile kernel
-# and the L1 kernel (the path of a window too wide for any tile).
+# and the argmin is noise. Each case runs its plan (the wide tile kernel
+# for D > 12, else the tile kernel) and the L1 kernel (the path of a
+# window too wide for any tile); the deep stack runs the tile kernel.
 CASES = [
     dict(win_size=7, min_disp=1, max_disp=6, consistent=False),
     dict(win_size=7, min_disp=1, max_disp=6, consistent=True),
@@ -3786,7 +3787,7 @@ def main():
             check(m <= MISMATCH, f"{where}: final map mismatch {m:.2%}")
             worst = [max(a, b) for a, b in zip(worst, errs)]
             paths.add(plan["path"])
-    check(paths == {"tile", "l1"}, f"phase 3 ran paths {paths}")
+    check(paths == {"wide", "tile", "l1"}, f"phase 3 ran paths {paths}")
 
     # The grid-limit case: one call of the whole stack against the same
     # stack in two calls (the twin would take too long at this size).
@@ -3799,14 +3800,16 @@ def main():
         torch.tensor(np.roll(l, -SHIFT, axis=2), device=dev),
         deep["win_size"], deep["min_disp"], deep["max_disp"])
     D = deep["max_disp"] - deep["min_disp"] + 1
-    plan = asw_cuda._plan(deep["win_size"], 1, D, B, h, w)
+    plan = asw_cuda._tile_plan(deep["win_size"], 1, D, B, h, w)
     pkw = dict(H=h, W=w, gamma_c=5.0, gamma_p=17.5, consistent=True, **deep)
     n0 = asw_cuda.launches
-    whole = asw_cuda._asw_pass(planes, **pkw)
+    whole = asw_cuda._asw_pass(planes, plan=plan, **pkw)
     torch.cuda.synchronize()
     check(asw_cuda.launches == n0 + 1, "ASW deep stack: launch not counted")
     for a, b in ((0, B // 2), (B // 2, B)):
-        part = asw_cuda._asw_pass(planes[a:b].contiguous(), **pkw)
+        part = asw_cuda._asw_pass(
+            planes[a:b].contiguous(), plan=asw_cuda._tile_plan(
+                deep["win_size"], 1, D, b - a, h, w), **pkw)
         for name, x, y in zip(("cost", "dispL", "dispR"), whole, part):
             check(torch.equal(x[a:b], y), f"ASW deep stack: {name} of frames "
                   f"{a}..{b} differs from the stack in pieces")
@@ -3815,13 +3818,14 @@ def main():
     torch.cuda.empty_cache()
     print(f"phase 3 kernel vs plain on {len(CASES)} option cases (45x150 "
           f"unless stated; step 2/3, D 18/20/41, min_disp -3, subpixel, "
-          f"B 2, win 111, B 2 at 37x101), each on the tile and the L1 path: "
+          f"B 2, win 111, B 2 at 37x101), each on its plan (wide for D > "
+          f"12, else tile) and the L1 path: "
           f"ok | max abs err {worst[0]:.3g}, max rel err {worst[1]:.3g} "
           f"(rtol {RTOL}), worst map mismatch {worst[2]:.4%} "
           f"(limit {MISMATCH:.0%}), launch count +1 per call | {B} frames "
           f"of {w}x{h}, D={D} (frames x chunks {B * -(-D // plan['chunk'])} "
           f"> 65,535): one call in {len(_build.frame_pieces(B, plan['frames']))} "
-          f"launches bit-equal to two calls | {card}")
+          f"launches of the tile kernel bit-equal to two calls | {card}")
 
     # ---- phases 4-5: the main path -------------------------------------
     m = StereoASW(device="cuda", **MAIN)

@@ -49,14 +49,17 @@ LIBRARY = _build.Library("asw_kernel", {
     # B, H, W, Hp, Wp, x0, win, step, min_disp, D, inv_gc,
     # chunk, jg, smem, device, stream
     "asw_pass": ([_P] * 6 + [_I] * 10 + [_F] + [_I] * 4 + [_P], _I),
-    # chunk, smem, device, info (int[3])
-    "asw_occupancy": ([_I, _I, _I, _P], _I),
+    # chunk, step, smem, device, info (int[3])
+    "asw_occupancy": ([_I] * 4 + [_P], _I),
     "asw_error_string": ([_I], ctypes.c_char_p),
 })
 
 # Kernel launches made by _asw_pass (CPU calls of the plain twin do not
 # count): lets a caller prove that a run went through the kernel.
 launches = 0
+# Of those, the passes that ran the wide tile kernel (every disparity of a
+# block's chunk in one walk of the window; see _wide_plan).
+wide_launches = 0
 
 # The cost kernel's output tile (one thread a pixel) and the disparities a
 # tile block keeps in registers: the kernel is compiled for these counts
@@ -67,33 +70,92 @@ CHUNKS = (4, 8, 12)
 # fit one H100 SM: 228 KB an SM, 1 KB of it reserved by each block, and
 # 227 KB (232,448 bytes) at most a block. Tried in this order.
 SMEM_BUDGETS = (76_800, 115_712, 232_448)
+# The wide tile kernel (asw_cost_tile_kernel_wide<NG, step>): a 32 x 4
+# tile, WIDE_GROUPS groups of NG = 4, 8 or 12 disparities (a thread two
+# pixels of a row, `step` apart, and a group), so a block holds one of
+# WIDE_CHUNKS; compiled for the lattice steps WIDE_STEPS.
+WIDE_TILE_H = 4
+WIDE_GROUPS = 8
+WIDE_CHUNKS = (32, 64, 96)
+WIDE_STEPS = (1, 2)
 
 
-def _plan(win_size, step, D, B, H, W, budgets=SMEM_BUDGETS):
-    """Launch plan of the cost kernel for one ``_asw_pass``.
+def _grid_checked(plan, B, D, H, W):
+    """``plan``, or ValueError where its grid exceeds CUDA's limits."""
+    gx, gy, gz = plan["grid"]
+    if (gx > _build.GRID_X_MAX or gy > _build.GRID_YZ_MAX
+            or gz > _build.GRID_YZ_MAX):
+        raise ValueError(f"ASW kernel grid {plan['grid']} exceeds CUDA's "
+                         f"limits (B={B}, D={D}, {H}x{W})")
+    return plan
 
-    Returns a dict: ``path`` "tile" (shared-memory tile kernel) or "l1"
-    (the kernel that reads device memory through L1, for a window too
-    wide for any tile), ``chunk`` (disparities a block: 4, 8 or 12 on the
-    tile path, the grid's last chunk padded with disparities that are
-    never written; 16 a walk on the L1 path), ``dcp`` (floats a tad row of
-    one window pixel takes: 4, or 12 = 4 x an odd number, so 16-byte
-    loads of a quarter-warp hit distinct banks), ``jg`` (window columns
-    whose e2 one shared-memory group holds), ``smem`` (dynamic shared
-    memory bytes a block, 0 on the L1 path), ``frames`` (frames a launch:
-    grid z holds frames x chunks, at most 65,535; a larger stack runs in
-    pieces) and ``grid`` (of one launch of ``frames`` frames).
 
-    The first budget of ``budgets`` that a tile fits wins, with the
-    smallest chunk that holds D (at most 12) first, then a chunk of 4;
-    ``jg`` fills the rest of the budget, evened out over the lattice's
-    columns. Raises ValueError when an image's own rows (or D's chunks)
-    exceed CUDA's grid limits.
-    """
+def _even_groups(jg, nl):
+    """The width of the fewest e2 groups of at most ``jg`` columns that
+    cover the lattice's ``nl`` columns, as even as they can be."""
+    return -(-nl // -(-nl // jg))
+
+
+def _wide_floats(win_size, step, chunk):
+    """(fixed, per window column) floats of the wide kernel's shared
+    memory, laid out as csrc/asw_kernel.cu lays it out: the tad ring (4
+    step more floats every 2 step columns), the Lab1 and Lab2 rings, Lab1
+    at the pixels and Lab2 at the target centres, the BGR rows being
+    staged and prox of one window row; then e1 and e2 of one window
+    column, their rows padded to = step mod 2 step floats."""
     pad = win_size // 2
     nl = 2 * (pad // step) + 1
     cw = TILE_W + 2 * pad
-    plan = None
+    sw = TILE_W + chunk - 1
+    th = WIDE_TILE_H
+    slot = cw * _wide_dcp(chunk) + (cw - 1) // (2 * step) * 4 * step
+    fixed = (th * slot + 3 * th * cw + 3 * th * (sw + 2 * pad)
+             + 3 * th * TILE_W + 3 * th * sw + 3 * th * cw
+             + 3 * th * (cw + chunk - 1) + nl)
+    e2_row = sw + (step - sw % (2 * step)) % (2 * step)
+    return fixed, th * (TILE_W + step + e2_row)
+
+
+def _wide_dcp(chunk):
+    """Floats of a window pixel's tad row: 4 x an odd number >= chunk."""
+    return chunk if (chunk // 4) % 2 else chunk + 4
+
+
+def _wide_plan(win_size, step, D, B, H, W, budget):
+    """The wide tile kernel's plan, or None where D fits one chunk of the
+    tile kernel, the kernel has no build for ``step``, or no wide chunk
+    fits ``budget`` bytes or the grid.
+
+    Fewest chunks of the window's walk first, then the smallest block
+    that holds D in that many; ``jg`` takes every column of the lattice
+    that the budget allows, evened out."""
+    if D <= CHUNKS[-1] or step not in WIDE_STEPS:
+        return None
+    nl = 2 * ((win_size // 2) // step) + 1
+    for chunk in sorted(WIDE_CHUNKS, key=lambda c: (-(-D // c), c)):
+        fixed, per_j = _wide_floats(win_size, step, chunk)
+        jg = min((budget // 4 - fixed) // per_j, nl)
+        if jg < 1:
+            continue
+        jg = _even_groups(jg, nl)
+        nchunks = -(-D // chunk)
+        frames = min(B, max(1, _build.GRID_YZ_MAX // nchunks))
+        grid = (-(-W // TILE_W), -(-H // WIDE_TILE_H), frames * nchunks)
+        if grid[1] > _build.GRID_YZ_MAX:
+            return None
+        return dict(path="wide", chunk=chunk, dcp=_wide_dcp(chunk), jg=jg,
+                    smem=4 * (fixed + jg * per_j), frames=frames, grid=grid,
+                    step=step)
+    return None
+
+
+def _tile_plan(win_size, step, D, B, H, W, budgets=SMEM_BUDGETS):
+    """The plan of the 32 x 8 tile kernel, in chunks of at most 12
+    disparities, or of the L1 kernel where no tile fits (see
+    :func:`_plan`, which takes it for D <= 12)."""
+    pad = win_size // 2
+    nl = 2 * (pad // step) + 1
+    cw = TILE_W + 2 * pad
     for budget in budgets:
         fit = next(c for c in CHUNKS if c >= min(D, CHUNKS[-1]))
         for chunk in dict.fromkeys((fit, CHUNKS[0])):
@@ -108,33 +170,59 @@ def _plan(win_size, step, D, B, H, W, budgets=SMEM_BUDGETS):
             jg = min((budget // 4 - fixed) // per_j, nl)
             if jg < 1:
                 continue
-            jg = -(-nl // -(-nl // jg))
+            jg = _even_groups(jg, nl)
             nchunks = -(-D // chunk)
             frames = min(B, max(1, _build.GRID_YZ_MAX // nchunks))
-            plan = dict(path="tile", chunk=chunk, dcp=dcp, jg=jg,
-                        smem=4 * (fixed + jg * per_j), frames=frames,
-                        grid=(-(-W // TILE_W), -(-H // TILE_H),
-                              frames * nchunks))
-            break
+            return _grid_checked(
+                dict(path="tile", chunk=chunk, dcp=dcp, jg=jg,
+                     smem=4 * (fixed + jg * per_j), frames=frames,
+                     grid=(-(-W // TILE_W), -(-H // TILE_H),
+                           frames * nchunks)), B, D, H, W)
+    frames = min(B, _build.GRID_YZ_MAX)
+    return _grid_checked(
+        dict(path="l1", chunk=16, dcp=0, jg=0, smem=0, frames=frames,
+             grid=(-(-W // TILE_W), -(-H // TILE_H), frames)), B, D, H, W)
+
+
+def _plan(win_size, step, D, B, H, W, budgets=SMEM_BUDGETS):
+    """Launch plan of the cost kernel for one ``_asw_pass``.
+
+    Returns a dict: ``path`` "wide" (the wide tile kernel: one walk of the
+    window for a chunk of 32, 64 or 96 disparities), "tile" (the tile
+    kernel, chunks of at most 12) or "l1" (the kernel that reads device
+    memory through L1, for a window too wide for any tile), ``chunk``
+    (disparities a block: one of WIDE_CHUNKS, or 4, 8 or 12, the grid's
+    last chunk padded with disparities that are never written; 16 a walk
+    on the L1 path), ``dcp`` (floats a tad row of one window pixel takes:
+    4 x an odd number, so 16-byte loads of a quarter-warp hit distinct
+    banks), ``jg`` (window columns whose e2 one shared-memory group
+    holds), ``smem`` (dynamic shared memory bytes a block, 0 on the L1
+    path), ``frames`` (frames a launch: grid z holds frames x chunks, at
+    most 65,535; a larger stack runs in pieces) and ``grid`` (of one
+    launch of ``frames`` frames); a wide plan also holds the ``step`` it
+    was made for.
+
+    D above 12 at step 1 or 2 takes the wide kernel where it fits the
+    largest budget of ``budgets`` (:func:`_wide_plan`). Otherwise the
+    first budget of ``budgets`` that a tile fits wins, with the smallest
+    chunk that holds D (at most 12) first, then a chunk of 4; ``jg`` fills
+    the rest of the budget, evened out over the lattice's columns. No
+    budget at all takes the L1 kernel. Raises ValueError when an image's
+    own rows (or D's chunks) exceed CUDA's grid limits.
+    """
+    if budgets:
+        plan = _wide_plan(win_size, step, D, B, H, W, max(budgets))
         if plan is not None:
-            break
-    if plan is None:
-        frames = min(B, _build.GRID_YZ_MAX)
-        plan = dict(path="l1", chunk=16, dcp=0, jg=0, smem=0, frames=frames,
-                    grid=(-(-W // TILE_W), -(-H // TILE_H), frames))
-    gx, gy, gz = plan["grid"]
-    if (gx > _build.GRID_X_MAX or gy > _build.GRID_YZ_MAX
-            or gz > _build.GRID_YZ_MAX):
-        raise ValueError(f"ASW kernel grid {plan['grid']} exceeds CUDA's "
-                         f"limits (B={B}, D={D}, {H}x{W})")
-    return plan
+            return plan
+    return _tile_plan(win_size, step, D, B, H, W, budgets)
 
 
 def occupancy(plan, device=None):
     """(registers a thread, spill bytes a thread, blocks resident per SM)
     of the cost kernel that ``plan`` launches, from the CUDA runtime."""
     return LIBRARY.occupancy("asw_occupancy", device, plan["chunk"],
-                             plan["smem"], what="ASW occupancy query failed")
+                             plan.get("step", 1), plan["smem"],
+                             what="ASW occupancy query failed")
 
 
 def _pads(win_size, min_disp, max_disp):
@@ -224,7 +312,7 @@ def _asw_pass(planes, *, H, W, win_size, min_disp, max_disp, gamma_c,
     launch takes runs in pieces, counted as one call); a CPU tensor runs
     :func:`_asw_pass_plain`; any other device raises.
     """
-    global launches
+    global launches, wide_launches
     pad, left, right = _pads(win_size, min_disp, max_disp)
     _check_planes(planes, (12, H + 2 * pad, W + left + right), win_size,
                   min_disp, max_disp, step)
@@ -241,6 +329,9 @@ def _asw_pass(planes, *, H, W, win_size, min_disp, max_disp, gamma_c,
     D = max_disp - min_disp + 1
     if plan is None:
         plan = _plan(win_size, step, D, B, H, W)
+    if plan["path"] == "wide" and plan["step"] != step:
+        raise ValueError(f"a wide plan for step {plan['step']} cannot run a "
+                         f"pass of step {step}")
     prox = _prox(win_size, gamma_p, dev)
     cost = torch.empty((B, D, H, W), dtype=torch.float32, device=dev)
     dispL = torch.empty((B, H, W), dtype=torch.int32, device=dev)
@@ -261,6 +352,7 @@ def _asw_pass(planes, *, H, W, win_size, min_disp, max_disp, gamma_c,
             1.0 / float(gamma_c), plan["chunk"], plan["jg"], plan["smem"],
             what="ASW kernel launch failed")
     launches += 1
+    wide_launches += plan["path"] == "wide"
     return cost, dispL, dispR, csub
 
 

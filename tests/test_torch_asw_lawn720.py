@@ -106,13 +106,19 @@ def test_twin_within_the_limit_of_the_reference(step, consistent, win, dmax):
     assert np.all(np.abs(a - b) <= 1e-5 * np.abs(b))
 
 
-def test_the_cell_runs_eight_chunks_on_the_tile_path():
-    plan = asw_cuda._plan(PARAMS["winSize"], PARAMS["step"],
-                          PARAMS["maxDisparity"] - PARAMS["minDisparity"] + 1,
-                          1, 720, 1280)
-    assert plan["path"] == "tile" and plan["chunk"] == 12
-    assert plan["jg"] == 17 and plan["smem"] == 68_376
-    assert plan["grid"] == (40, 90, 8)
+def test_the_cell_walks_the_window_once_on_the_wide_path():
+    """All 90 disparities in one wide chunk of 96 (8 groups of 12), every
+    one of the lattice's 17 columns in one e2 group, one block of 16 warps
+    an SM; the tile kernel would take eight chunks of 12."""
+    args = (PARAMS["winSize"], PARAMS["step"],
+            PARAMS["maxDisparity"] - PARAMS["minDisparity"] + 1, 1, 720, 1280)
+    plan = asw_cuda._plan(*args)
+    assert plan == dict(path="wide", chunk=96, dcp=100, jg=17,
+                        smem=181_748, frames=1, grid=(40, 180, 1), step=2)
+    tile = asw_cuda._tile_plan(*args)
+    assert tile["path"] == "tile" and tile["chunk"] == 12
+    assert tile["jg"] == 17 and tile["smem"] == 68_376
+    assert tile["grid"] == (40, 90, 8)
 
 
 def test_config_and_traffic_files_fit_together():
@@ -157,11 +163,12 @@ def test_k1_bound_of_a_frame():
 def test_cell_on_the_card_within_the_limit(card, seed):  # noqa: F811
     lefts, rights, _ = _pairs(seed, 1280, 720, TRAFFIC["scene"], 2)
     stereo = StereoASW(**PARAMS, device=card)
-    before = asw_cuda.launches
+    before = asw_cuda.launches, asw_cuda.wide_launches
     got = []
     for k in range(len(lefts)):
         got.append(stereo.compute(lefts[k], rights[k]))
-        assert asw_cuda.launches == before + k + 1
+        assert (asw_cuda.launches, asw_cuda.wide_launches) == (
+            before[0] + k + 1, before[1] + k + 1)
     got = np.stack(got)
     want = ref.disparity(CONFIG, lefts, rights, card)
     assert _mismatch_pct(got, want) <= LIMIT
